@@ -1,0 +1,106 @@
+"""Synthetic interaction generators (numpy; the same code as the JAX
+package's ``data/synthetic.py``, so the same seed gives bit-identical edges).
+
+The hetero-graph generators of the JAX module come with the ranking slice.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def random_bipartite_edges(
+    seed: int,
+    num_users: int,
+    num_items: int,
+    avg_degree: float,
+    popularity_alpha: float = 1.0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Random user→item interactions with Zipf-ish item popularity and at
+    least one interaction per user; (user, item) pairs are unique.
+
+    ``popularity_alpha`` < 1 flattens the popularity distribution.
+    """
+    rng = np.random.default_rng(seed)
+    # per-user degree ~ 1 + Poisson(avg_degree - 1)
+    deg = 1 + rng.poisson(max(avg_degree - 1.0, 0.0), size=num_users)
+    deg = np.minimum(deg, num_items)
+    total = int(deg.sum())
+    users = np.repeat(np.arange(num_users, dtype=np.int64), deg)
+    ranks = np.arange(1, num_items + 1, dtype=np.float64)
+    probs = ranks ** (-popularity_alpha)
+    probs /= probs.sum()
+    items = rng.choice(num_items, size=total, p=probs).astype(np.int64)
+    # dedup (user, item)
+    key = users * num_items + items
+    _, first = np.unique(key, return_index=True)
+    first = np.sort(first)
+    return users[first].astype(np.int64), items[first].astype(np.int64)
+
+
+def latent_bipartite_edges(
+    seed: int,
+    num_users: int,
+    num_items: int,
+    avg_degree: float,
+    num_clusters: int = 16,
+    in_cluster_p: float = 0.85,
+    popularity_alpha: float = 0.8,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Clustered (latent-factor) interactions — a *learnable* synthetic
+    graph: every user and item carries a hidden cluster id, and each
+    interaction draws from the user's own cluster with probability
+    ``in_cluster_p`` (popularity-weighted), else from the global popularity
+    distribution.
+
+    Returns ``(edge_user, edge_item, user_cluster, item_cluster)``; pairs are
+    deduplicated and every user keeps ≥1 interaction.
+    """
+    rng = np.random.default_rng(seed)
+    deg = 1 + rng.poisson(max(avg_degree - 1.0, 0.0), size=num_users)
+    deg = np.minimum(deg, num_items)
+    total = int(deg.sum())
+    users = np.repeat(np.arange(num_users, dtype=np.int64), deg)
+
+    user_cluster = rng.integers(0, num_clusters, num_users)
+    item_cluster = rng.integers(0, num_clusters, num_items)
+    ranks = np.arange(1, num_items + 1, dtype=np.float64)
+    probs = ranks ** (-popularity_alpha)
+    probs /= probs.sum()
+
+    items = rng.choice(num_items, size=total, p=probs).astype(np.int64)
+    in_cluster = rng.random(total) < in_cluster_p
+    ucl = user_cluster[users]
+    for c in range(num_clusters):
+        sel = in_cluster & (ucl == c)
+        n = int(sel.sum())
+        if n == 0:
+            continue
+        members = np.flatnonzero(item_cluster == c)
+        if len(members) == 0:  # empty cluster: keep the global draw
+            continue
+        pc = probs[members] / probs[members].sum()
+        items[sel] = members[rng.choice(len(members), size=n, p=pc)]
+
+    key = users * num_items + items
+    _, first = np.unique(key, return_index=True)
+    first = np.sort(first)
+    return (
+        users[first].astype(np.int64),
+        items[first].astype(np.int64),
+        user_cluster.astype(np.int32),
+        item_cluster.astype(np.int32),
+    )
+
+
+def movielens_like_edges(
+    seed: int = 0, scale: float = 1.0
+) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """A graph with MovieLens-1M's shape: 6040 users × 3706 items × ~1M
+    interactions (scaled by ``scale``). Returns (eu, ei, num_users, num_items)."""
+    num_users = max(int(6040 * scale), 8)
+    num_items = max(int(3706 * scale), 8)
+    avg_degree = 165.6  # 1M / 6040
+    eu, ei = random_bipartite_edges(seed, num_users, num_items, avg_degree, 0.8)
+    return eu, ei, num_users, num_items
