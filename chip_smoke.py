@@ -19,13 +19,11 @@ on one NVIDIA H100: ``python3 chip_smoke.py`` from the repository root.
    exclusions (kernel C), and one ``auto_mips_topk`` call that streams
    through kernel B. Launch counters are zeroed before and read after.
 4. Prints a ``{"kernels": [...]}`` JSON line, the card's line, and as the
-   last line ``{"ok": true, "device": {...}}``. Writes the full record to
-   ``chiprun_out/chip_smoke.json``.
+   last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero; the script needs a CUDA card and the checkout.
 """
 import json
-import os
 import warnings
 import subprocess
 import sys
@@ -240,7 +238,7 @@ def main() -> int:
     )
     log("segsum:", json.dumps(kern["segsum"]))
 
-    # B and C at the serving shape B=256, I=104,547 (issue's detail rows)
+    # B and C at the serving shape B=256, I=104,547 (detail rows)
     excl_users = np.arange(256)
     ex, exc = padded_user_items(excl_users, train_u.astype(np.int64), train_i)
     ex_t = torch.from_numpy(ex).to(dev)
@@ -406,10 +404,6 @@ def main() -> int:
         library_ms=c_main["library_ms"], per=f"B=256 I={serve_i} k=12 masked",
     )
     record["kernels"] = list(kern.values())
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(record, f, indent=1)
-
     log(json.dumps({"kernels": record["kernels"]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
