@@ -6,7 +6,7 @@ on one NVIDIA H100: ``python3 chip_smoke.py`` from the repository root.
    kernels from ``laplace_gnn_recommendation_tpu_torch/csrc`` (timed).
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes: the segment-sum kernel (A) on both directions of the
-   H&M-shaped train graph; the f32 streaming top-k (B) with and without a
+   H&M-shaped train graph, at D=32 and at D=100; the f32 streaming top-k (B) with and without a
    mask at B=256, I=104,547 (k=12 and k=256) and at the B=512, I=270,336
    shape ``auto_mips_topk`` streams; the int8 streaming top-k (C) with and
    without a mask. Each kernel's time, its plain version's time and one
@@ -37,6 +37,7 @@ AVG_DEGREE = 23.0
 POPULARITY_ALPHA = 0.8
 SERVE_USERS = 1_000
 BIG_B, BIG_I = 512, 270_336   # B·I·4 > 512 MiB and I % 512 == 0: streams
+WIDE_D = 100   # kernel A's check at a width that leaves lanes idle
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at a 700 W limit)
 PEAK_BYTES_S = 3.35e12
@@ -204,6 +205,26 @@ def main() -> int:
         again = sp.pallas_segment_sum(plan, table)
         if not torch.equal(out, again):
             fail("segsum is not deterministic from run to run")
+    # a width whose float4 count (25) is not a power of two: 7 of 32 lanes idle
+    gen_w = torch.Generator(device=dev).manual_seed(2)
+    a_err_wide = 0.0
+    for plan, rows in ((prop.to_user, NUM_ITEMS), (prop.to_item, NUM_USERS)):
+        table = torch.randn((rows, WIDE_D), generator=gen_w, device=dev) * 0.1
+        out = sp.pallas_segment_sum(plan, table)
+        ref = sp.pallas_segment_sum_plain(plan, table)
+        atol, rtol = TOL_SEGSUM
+        a_err_wide = max(a_err_wide, float((out - ref).abs().max()))
+        if float(((out - ref).abs() - (atol + rtol * ref.abs())).max()) > 0:
+            fail(f"segsum D={WIDE_D} rows={plan.num_rows}: beyond atol {atol} + rtol {rtol}")
+        del table, out, ref
+    log(f"segsum D={WIDE_D}: max abs err {a_err_wide}")
+    d32 = cfg.hidden_layer_size
+    shifted = params.item_emb.new_zeros(NUM_ITEMS * d32 + 1)[1:].view(NUM_ITEMS, d32)
+    try:
+        sp.pallas_segment_sum(prop.to_user, shifted)
+        fail("segsum took a table that is not 16-byte aligned")
+    except ValueError:
+        pass
     warnings.filterwarnings("ignore", message="Sparse")
     csr = [
         torch.sparse_csr_tensor(p.row_ptr, p.src.long(), p.w, size=(p.num_rows, t.shape[0]))
@@ -232,6 +253,7 @@ def main() -> int:
         name="segsum", route="cuda", source="laplace_gnn_recommendation_tpu_torch/csrc/segsum.cu",
         replaces="laplace_gnn_recommendation_tpu/ops/spmm_pallas.py:132 (_segsum_kernel)",
         max_abs_err=a_err, tol=f"atol {TOL_SEGSUM[0]} + rtol {TOL_SEGSUM[1]}",
+        max_abs_err_wide=a_err_wide, wide_d=WIDE_D,
         ms=a_ms, plain_ms=a_plain, bound_ms=a_bound, bound_by=a_by, library_ms=a_lib,
         per="one propagation step: both directions, 2 launches",
         gathered_rows_bound_ms=gathered / PEAK_BYTES_S * 1e3,

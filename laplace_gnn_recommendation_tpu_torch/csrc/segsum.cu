@@ -19,12 +19,12 @@
 //   most `chunk` consecutive edges (an empty row owns one empty piece, so
 //   every row is written). One warp runs one piece. Edge ids and weights
 //   are loaded 32 at a time, one per lane, and broadcast with shuffles.
-// * Widths D = 4·L with L a power of two up to 32 (D = 32: L = 8) take the
-//   vector path: L lanes read one table row as float4s, so a warp gathers
-//   32 / L rows per instruction and keeps that many loads in flight; each
-//   lane group sums its own edges, and the groups are combined by a fixed
-//   butterfly at the end. Other widths take the scalar path: lane l owns
-//   columns l, l+32, l+64, l+96 of a 128-column block, in edge order.
+// * Widths: D a multiple of 4, up to 128. A row is D/4 float4s; L lanes
+//   (L the power of two at or above D/4, so L = 8 at D = 32) read one table
+//   row, lanes past D/4 idle, so a warp gathers 32 / L rows per instruction
+//   and keeps that many loads in flight; each lane group sums its own edges,
+//   and the groups are combined by a fixed butterfly at the end. Other
+//   widths, and tables not 16-byte aligned, are refused.
 // * A row with one piece writes its output row directly. The pieces of a
 //   heavier row (item rows of a popularity-skewed graph hold up to hundreds
 //   of thousands of edges) each write a partial row into a scratch slot, and
@@ -37,75 +37,29 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kColsPerPass = 128;  // 4 columns per lane
 constexpr int kThreads = 256;
 
+// kLanes lanes (a power of two <= 32) cover one row of d4 <= kLanes float4s;
+// 32 / kLanes edges are gathered per step.
+template <int kLanes>
 __global__ void segsum_pieces_kernel(
     const int64_t* __restrict__ row_ptr, const int32_t* __restrict__ src,
     const float* __restrict__ w, const int32_t* __restrict__ piece_row,
     const int64_t* __restrict__ piece_lo, const int32_t* __restrict__ piece_slot,
-    int64_t num_pieces, int64_t chunk, const float* __restrict__ table,
-    int64_t d, float* __restrict__ partial, float* __restrict__ out) {
-  const int64_t piece = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (piece >= num_pieces) return;  // uniform across the warp
-  const int64_t row = piece_row[piece];
-  const int64_t lo = piece_lo[piece];
-  const int64_t row_end = row_ptr[row + 1];
-  const int64_t hi = lo + chunk < row_end ? lo + chunk : row_end;
-  const int32_t slot = piece_slot[piece];
-  float* dst = slot < 0 ? out + row * d : partial + static_cast<int64_t>(slot) * d;
-
-  for (int64_t c0 = 0; c0 < d; c0 += kColsPerPass) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int64_t e0 = lo; e0 < hi; e0 += 32) {
-      const int n = hi - e0 < 32 ? static_cast<int>(hi - e0) : 32;
-      int32_t s_lane = 0;
-      float w_lane = 0.f;
-      if (lane < n) {
-        s_lane = src[e0 + lane];
-        w_lane = w[e0 + lane];
-      }
-      for (int t = 0; t < n; ++t) {
-        const int64_t s = __shfl_sync(kFull, s_lane, t);
-        const float wt = __shfl_sync(kFull, w_lane, t);
-        const float* trow = table + s * d + c0;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int64_t col = c0 + lane + 32 * q;
-          if (col < d) acc[q] = fmaf(wt, __ldg(trow + lane + 32 * q), acc[q]);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int64_t col = c0 + lane + 32 * q;
-      if (col < d) dst[col] = acc[q];
-    }
-  }
-}
-
-// Vector path: kLanes lanes (a power of two ≤ 32) cover one row of
-// d = 4·kLanes floats; 32 / kLanes edges are gathered per step.
-template <int kLanes>
-__global__ void segsum_pieces_vec_kernel(
-    const int64_t* __restrict__ row_ptr, const int32_t* __restrict__ src,
-    const float* __restrict__ w, const int32_t* __restrict__ piece_row,
-    const int64_t* __restrict__ piece_lo, const int32_t* __restrict__ piece_slot,
-    int64_t num_pieces, int64_t chunk, const float4* __restrict__ table,
-    float* __restrict__ partial, float* __restrict__ out) {
+    int64_t num_pieces, int64_t chunk, const float4* __restrict__ table, int64_t d4,
+    float4* __restrict__ partial, float4* __restrict__ out) {
   constexpr int kGroups = 32 / kLanes;
-  constexpr int64_t d = 4 * kLanes;
   const int64_t piece = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (piece >= num_pieces) return;  // uniform across the warp
   const int grp = lane / kLanes, sub = lane % kLanes;
+  const bool live = sub < d4;
   const int64_t row = piece_row[piece];
   const int64_t lo = piece_lo[piece];
   const int64_t row_end = row_ptr[row + 1];
   const int64_t hi = lo + chunk < row_end ? lo + chunk : row_end;
   const int32_t slot = piece_slot[piece];
-  float* dst = slot < 0 ? out + row * d : partial + static_cast<int64_t>(slot) * d;
+  float4* dst = slot < 0 ? out + row * d4 : partial + static_cast<int64_t>(slot) * d4;
 
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int64_t e0 = lo; e0 < hi; e0 += 32) {
@@ -121,8 +75,8 @@ __global__ void segsum_pieces_vec_kernel(
       const int t = t0 + grp;
       const int64_t s = __shfl_sync(kFull, s_lane, t);
       const float wt = __shfl_sync(kFull, w_lane, t);
-      if (t < n) {
-        const float4 x = __ldg(table + s * kLanes + sub);
+      if (t < n && live) {
+        const float4 x = __ldg(table + s * d4 + sub);
         acc.x = fmaf(wt, x.x, acc.x);
         acc.y = fmaf(wt, x.y, acc.y);
         acc.z = fmaf(wt, x.z, acc.z);
@@ -137,7 +91,7 @@ __global__ void segsum_pieces_vec_kernel(
     acc.z += __shfl_xor_sync(kFull, acc.z, off);
     acc.w += __shfl_xor_sync(kFull, acc.w, off);
   }
-  if (grp == 0) reinterpret_cast<float4*>(dst)[sub] = acc;
+  if (grp == 0 && live) dst[sub] = acc;
 }
 
 __global__ void segsum_combine_kernel(
@@ -165,40 +119,33 @@ extern "C" int segsum_launch(
     const void* table, int64_t d, void* partial, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t warps_per_block = kThreads / 32;
-  const int64_t lanes = d / 4;
-  const bool vec = d % 4 == 0 && lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0 &&
-                   reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(partial) % 16 == 0;
-  if (num_pieces > 0 && vec) {
+  const int64_t d4 = d / 4;
+  if (d % 4 != 0 || d4 < 1 || d4 > 32 || reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(partial) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int lanes = 1;
+  while (lanes < d4) lanes <<= 1;
+  if (num_pieces > 0) {
     const unsigned blocks =
         static_cast<unsigned>((num_pieces + warps_per_block - 1) / warps_per_block);
-#define SEGSUM_VEC(L)                                                                        \
-  segsum_pieces_vec_kernel<L><<<blocks, kThreads, 0, st>>>(                                  \
+#define SEGSUM(L)                                                                            \
+  segsum_pieces_kernel<L><<<blocks, kThreads, 0, st>>>(                                      \
       static_cast<const int64_t*>(row_ptr), static_cast<const int32_t*>(src),                \
       static_cast<const float*>(w), static_cast<const int32_t*>(piece_row),                  \
       static_cast<const int64_t*>(piece_lo), static_cast<const int32_t*>(piece_slot),        \
-      num_pieces, chunk, static_cast<const float4*>(table), static_cast<float*>(partial),    \
-      static_cast<float*>(out))
+      num_pieces, chunk, static_cast<const float4*>(table), d4,                              \
+      static_cast<float4*>(partial), static_cast<float4*>(out))
     switch (lanes) {
-      case 1: SEGSUM_VEC(1); break;
-      case 2: SEGSUM_VEC(2); break;
-      case 4: SEGSUM_VEC(4); break;
-      case 8: SEGSUM_VEC(8); break;
-      case 16: SEGSUM_VEC(16); break;
-      default: SEGSUM_VEC(32); break;
+      case 1: SEGSUM(1); break;
+      case 2: SEGSUM(2); break;
+      case 4: SEGSUM(4); break;
+      case 8: SEGSUM(8); break;
+      case 16: SEGSUM(16); break;
+      default: SEGSUM(32); break;
     }
-#undef SEGSUM_VEC
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  } else if (num_pieces > 0) {
-    const int64_t blocks = (num_pieces + warps_per_block - 1) / warps_per_block;
-    segsum_pieces_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        static_cast<const int64_t*>(row_ptr), static_cast<const int32_t*>(src),
-        static_cast<const float*>(w), static_cast<const int32_t*>(piece_row),
-        static_cast<const int64_t*>(piece_lo), static_cast<const int32_t*>(piece_slot),
-        num_pieces, chunk, static_cast<const float*>(table), d,
-        static_cast<float*>(partial), static_cast<float*>(out));
+#undef SEGSUM
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -13,9 +13,10 @@ Skewed graphs need this: at H&M shape the most popular item row holds
 hundreds of thousands of edges, which one warp would walk alone. No float
 atomics, so results are the same on every run.
 
-``pallas_segment_sum`` launches the kernel for tensors on the card and runs
-the plain version (``pallas_segment_sum_plain``: ``index_add_`` over the
-rows) for tensors on the CPU.
+``pallas_segment_sum`` launches the kernel for tensors on the card (widths
+a multiple of 4 up to 128; others raise) and runs the plain version
+(``pallas_segment_sum_plain``: ``index_add_`` over the rows) for tensors on
+the CPU.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from ..data.graph import BipartiteGraph
 from .multiscale import multiscale_loop
 
 EDGES_PER_PIECE = 512
+MAX_WIDTH = 128   # the kernel's lanes cover D/4 float4s, at most 32 of them
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -126,6 +128,11 @@ def pallas_segment_sum(plan: PallasSegmentPlan, table: torch.Tensor) -> torch.Te
     if plan.src.device != table.device:
         raise ValueError(f"plan on {plan.src.device}, table on {table.device}")
     d = int(table.shape[1])
+    if d % 4 or not 4 <= d <= MAX_WIDTH or table.data_ptr() % 16:
+        raise ValueError(
+            f"the segment-sum kernel takes widths that are a multiple of 4 up to "
+            f"{MAX_WIDTH} on a 16-byte aligned table, got D={d}"
+        )
     out = torch.empty((plan.num_rows, d), dtype=torch.float32, device=table.device)
     partial = torch.empty((max(plan.num_slots, 1), d), dtype=torch.float32, device=table.device)
     lib = _build.load("segsum", _SIGNATURES)

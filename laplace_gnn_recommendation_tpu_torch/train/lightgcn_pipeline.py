@@ -47,7 +47,7 @@ def select_propagation(cfg: LightGCNConfig, graph: BipartiteGraph):
         )
     if mode != "auto":
         raise ValueError(f"unknown propagation mode {mode!r}")
-    if graph.device.type == "cuda" and graph.num_edges > 0:
+    if graph.device.type == "cuda":
         return PallasGraph.from_graph(graph)
     return graph
 

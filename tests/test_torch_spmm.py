@@ -45,7 +45,8 @@ def _skewed_edges(seed, rows, cols):
 def _emulate_kernel(plan: tsp.PallasSegmentPlan, table: np.ndarray, groups: int) -> np.ndarray:
     """The schedule of csrc/segsum.cu in numpy. Each piece is summed in f32
     by ``groups`` lane groups — edge t of every 32-edge batch goes to group
-    t % groups (1 group: the scalar path; 32 / (D/4): the vector path) —
+    t % groups, with groups = 32 / L and L the power of two at or above
+    D/4 (1 group for D above 64, 4 groups at D=32) —
     and the groups are combined by the kernel's xor butterfly;
     single-piece rows are written directly, heavy rows summed from their
     slots in piece order."""
@@ -80,7 +81,7 @@ def _emulate_kernel(plan: tsp.PallasSegmentPlan, table: np.ndarray, groups: int)
     return out
 
 
-@pytest.mark.parametrize("d", [8, 32])
+@pytest.mark.parametrize("d", [8, 32, 100])
 def test_segment_sum_matches_jax_pallas(d):
     rows, cols = 300, 90
     dst, src, w = _skewed_edges(d, rows, cols)
@@ -159,6 +160,15 @@ def test_lightgcn_forward_matches_jax(operand):
 def test_select_propagation_modes(mode, kind):
     _, tg = _graph_pair(2, 10, 8, 30)
     assert isinstance(select_propagation(LightGCNConfig(propagation=mode), tg), kind)
+
+
+@pytest.mark.parametrize("num_edges", [30, 0])
+def test_select_propagation_auto_picks_kernel_on_card(monkeypatch, num_edges):
+    """On a card graph ``auto`` always takes kernel A, an edgeless one too."""
+    _, tg = _graph_pair(2, 10, 8, num_edges)
+    monkeypatch.setattr(type(tg), "device", property(lambda self: torch.device("cuda")))
+    monkeypatch.setattr(tsp.PallasGraph, "from_graph", staticmethod(lambda g: "kernel A"))
+    assert select_propagation(LightGCNConfig(propagation="auto"), tg) == "kernel A"
 
 
 @pytest.mark.parametrize("mode", ["dense", "sharded"])
