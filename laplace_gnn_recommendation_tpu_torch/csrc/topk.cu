@@ -1,10 +1,11 @@
-// Streaming maximum-inner-product top-k — kernels B (f32) and C (int8).
+// Streaming maximum-inner-product top-k over an int8 catalog — kernel C.
 //
-// Kernel B replaces the Pallas kernels `_kernel` and `_kernel_masked` of
-// laplace_gnn_recommendation_tpu/ops/topk_pallas.py (`streaming_mips_topk`,
-// `streaming_mips_topk_masked`); kernel C replaces `_kernel_int8` and
-// `_kernel_int8_masked` (`streaming_mips_topk_int8`). Each is one kernel with
-// a nullable exclusion-mask pointer.
+// Kernel C replaces the Pallas kernels `_kernel_int8` and
+// `_kernel_int8_masked` of laplace_gnn_recommendation_tpu/ops/topk_pallas.py
+// (`streaming_mips_topk_int8`): one kernel with a nullable exclusion-mask
+// pointer. The f32 kernel (B) has its own source, topk_f32.cu; the template
+// below keeps the f32 branches of its first design unchanged, and only its
+// int8 instantiation is built.
 //
 // Semantics kept from the Pallas fold (`_fold_topk`): the result is the k
 // best items by (score descending, item id ascending); a slot that no item
@@ -266,18 +267,6 @@ int launch(const float* users_f, const int8_t* users_q, const float* su,
 }
 
 }  // namespace
-
-extern "C" int topk_f32_launch(const void* users, const void* items, const void* mask,
-                               int64_t b, int64_t i, int64_t d, int64_t k,
-                               int64_t num_splits, int64_t split_len, void* part_v,
-                               void* part_i, void* out_v, void* out_i, void* stream) {
-  return launch<false>(static_cast<const float*>(users), nullptr, nullptr,
-                       static_cast<const float*>(items), nullptr, nullptr,
-                       static_cast<const int8_t*>(mask), b, i, d, k, num_splits, split_len,
-                       static_cast<float*>(part_v), static_cast<int32_t*>(part_i),
-                       static_cast<float*>(out_v), static_cast<int32_t*>(out_i),
-                       static_cast<cudaStream_t>(stream));
-}
 
 extern "C" int topk_int8_launch(const void* qu, const void* su, const void* q_items,
                                 const void* item_scales, const void* mask, int64_t b,

@@ -1,12 +1,13 @@
 """Streaming MIPS top-k — the port of the JAX package's ``ops/topk_pallas.py``.
 
-Kernel B (``csrc/topk.cu``, ``topk_f32_launch``) replaces the Pallas kernels
-``_kernel`` and ``_kernel_masked``; kernel C (``topk_int8_launch``) replaces
-``_kernel_int8`` and ``_kernel_int8_masked``. Each takes an optional int8
-exclusion mask. The [B, I] score matrix never reaches device memory: item
-tiles are staged in shared memory and folded into a running k-best list per
-user; the catalog is cut into ranges that blocks fold in parallel, and a
-merge pass combines each user's lists.
+Kernel B (``csrc/topk_f32.cu``) replaces the Pallas kernels ``_kernel`` and
+``_kernel_masked``; kernel C (``csrc/topk.cu``, ``topk_int8_launch``)
+replaces ``_kernel_int8`` and ``_kernel_int8_masked``. Each takes an
+optional int8 exclusion mask. The [B, I] score matrix never reaches device
+memory: item tiles are staged in shared memory and folded into a running
+k-best list per user; the catalog is cut into ranges that blocks fold in
+parallel, and a merge pass combines each user's lists. Kernel B takes
+widths that are a multiple of 4 on 16-byte aligned tensors.
 
 Semantics (those of the Pallas fold ``_fold_topk``): the k best items by
 (score descending, item id ascending); slots no item fills hold
@@ -35,9 +36,13 @@ _MAX_SMEM_BYTES = 232_448
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    "topk_f32_launch": [_P, _P, _P] + [_I64] * 6 + [_P] * 5,
     "topk_int8_launch": [_P, _P, _P, _P, _P] + [_I64] * 6 + [_P] * 5,
     "topk_smem_bytes": [_I64, _I64, _I64],
+}
+_F32_SIGNATURES = {
+    "topk_f32_launch": [_P, _P, _P] + [_I64] * 6 + [_P] * 5,
+    "topk_f32_plan": [_I64] * 4 + [_P],
+    "topk_f32_smem_bytes": [_I64, _I64],
 }
 
 
@@ -147,9 +152,9 @@ def _splits(b: int, i: int, device) -> Tuple[int, int]:
     return s, -(-i // s)
 
 
-def _launch(fn: str, b: int, i: int, d: int, k: int, device, args_in, is_int8: bool):
+def _launch_int8(b: int, i: int, d: int, k: int, device, args_in):
     lib = _build.load("topk", _SIGNATURES)
-    smem = lib.topk_smem_bytes(d, k, int(is_int8))
+    smem = lib.topk_smem_bytes(d, k, 1)
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(f"D={d}, k={k} needs {smem} B of shared memory per block")
     s, split_len = _splits(b, i, device)
@@ -157,12 +162,12 @@ def _launch(fn: str, b: int, i: int, d: int, k: int, device, args_in, is_int8: b
     part_i = torch.empty((b, s, k), dtype=torch.int32, device=device)
     vals = torch.empty((b, k), dtype=torch.float32, device=device)
     idx = torch.empty((b, k), dtype=torch.int32, device=device)
-    rc = getattr(lib, fn)(
+    rc = lib.topk_int8_launch(
         *args_in, b, i, d, k, s, split_len,
         part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
         _build.stream_ptr(device),
     )
-    _build.check(rc, fn)
+    _build.check(rc, "topk_int8_launch")
     return vals, idx
 
 
@@ -191,13 +196,31 @@ def streaming_mips_topk(
     i = int(item_emb.shape[0])
     _check(user_emb, "user_emb", torch.float32, (b, d), dev)
     _check(item_emb, "item_emb", torch.float32, (i, d), dev)
+    if d % 4 or user_emb.data_ptr() % 16 or item_emb.data_ptr() % 16:
+        raise ValueError(
+            f"kernel B takes widths that are a multiple of 4 on 16-byte aligned "
+            f"tensors, got D={d}"
+        )
     mask_ptr = _mask_ptr(excl_mask, b, i, dev)
-    out = _launch(
-        "topk_f32_launch", b, i, d, k, dev,
-        (user_emb.data_ptr(), item_emb.data_ptr(), mask_ptr), False,
+    lib = _build.load("topk_f32", _F32_SIGNATURES)
+    smem = lib.topk_f32_smem_bytes(d, k)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(f"D={d}, k={k} needs {smem} B of shared memory per block")
+    plan = (ctypes.c_int64 * 2)()
+    _build.check(lib.topk_f32_plan(b, i, d, k, ctypes.cast(plan, _P)), "topk_f32_plan")
+    s, split_len = plan
+    part_v = torch.empty((b, s, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b, s, k), dtype=torch.int32, device=dev)
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, k), dtype=torch.int32, device=dev)
+    rc = lib.topk_f32_launch(
+        user_emb.data_ptr(), item_emb.data_ptr(), mask_ptr, b, i, d, k, s, split_len,
+        part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+        _build.stream_ptr(dev),
     )
+    _build.check(rc, "topk_f32_launch")
     _build.launches["topk_f32"] += 1
-    return out
+    return vals, idx
 
 
 def streaming_mips_topk_masked(
@@ -232,10 +255,9 @@ def streaming_mips_topk_int8(
     mask_ptr = _mask_ptr(excl_mask, b, i, dev)
     qu, su = row_quantize(user_emb.float())
     qu, su = qu.contiguous(), su.reshape(-1).contiguous()
-    out = _launch(
-        "topk_int8_launch", b, i, d, k, dev,
+    out = _launch_int8(
+        b, i, d, k, dev,
         (qu.data_ptr(), su.data_ptr(), q_items.data_ptr(), item_scales.data_ptr(), mask_ptr),
-        True,
     )
     _build.launches["topk_int8"] += 1
     return out

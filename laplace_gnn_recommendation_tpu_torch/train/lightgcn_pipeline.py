@@ -22,20 +22,35 @@ from ..ops.metrics import topk_hits
 from ..ops.topk import auto_mips_topk, masked_topk
 
 
+# Node-table size from which the blocked tier gathers in bf16 (the JAX
+# package's ``train/lightgcn_pipeline.BF16_GATHER_ROWS``).
+BF16_GATHER_ROWS = 1 << 19
+
+
+def uses_bf16_gather(graph: BipartiteGraph) -> bool:
+    """The JAX ``_maybe_bf16`` rule: the blocked tier gathers in bf16 when a
+    node table has at least ``BF16_GATHER_ROWS`` rows."""
+    return max(graph.num_users, graph.num_items) >= BF16_GATHER_ROWS
+
+
 def select_propagation(cfg: LightGCNConfig, graph: BipartiteGraph):
     """Propagation operand for ``lightgcn_forward`` (``cfg.propagation``).
 
     ``plain`` is the numerical reference (``index_add_``); ``pallas`` and
     ``blocked`` — two TPU layouts of one contraction — both map onto the
-    segment-sum kernel; ``auto`` picks that kernel on the card (the dense
-    tier is not ported yet) and the plain tier on the CPU."""
+    segment-sum kernel, ``blocked`` in the bf16-gather mode where the JAX
+    package's blocked tier takes it (``uses_bf16_gather``). ``auto`` takes
+    the blocked tier's operand on the card (the dense tier is not ported
+    yet); on the CPU the plain tier, unless the bf16 rule holds, since the
+    bf16 mode computes another function."""
     from ..ops.spmm_pallas import PallasGraph
 
     mode = getattr(cfg, "propagation", "auto")
     if mode == "plain":
         return graph
-    if mode in ("pallas", "blocked"):
-        return PallasGraph.from_graph(graph)
+    width = cfg.hidden_layer_size
+    if mode == "pallas":
+        return PallasGraph.from_graph(graph, width=width)
     if mode == "dense":
         raise NotImplementedError(
             "propagation='dense' is not ported yet: the dense tier comes in a "
@@ -45,11 +60,12 @@ def select_propagation(cfg: LightGCNConfig, graph: BipartiteGraph):
         raise NotImplementedError(
             "propagation='sharded' comes with the multi-GPU slice"
         )
-    if mode != "auto":
+    if mode not in ("auto", "blocked"):
         raise ValueError(f"unknown propagation mode {mode!r}")
-    if graph.device.type == "cuda":
-        return PallasGraph.from_graph(graph)
-    return graph
+    bf16 = uses_bf16_gather(graph)
+    if mode == "auto" and graph.device.type != "cuda" and not bf16:
+        return graph
+    return PallasGraph.from_graph(graph, width=width, gather_bf16=bf16)
 
 
 def _metrics_from_topk(

@@ -215,3 +215,116 @@ def test_auto_dispatch_rule(monkeypatch):
     u, it = torch.from_numpy(_gauss(17, 4, 8)), torch.from_numpy(_gauss(18, 512, 8))
     v, i = ttopk.auto_mips_topk(u, it, 3)
     assert not calls and v.shape == (4, 3) and i.dtype == torch.int32
+
+
+def _tied(seed, b, i, d):
+    """Users in {-1, 0, 1} and items in {-0.5, ..., 0.5} by quarters: every
+    score is a multiple of 1/4 that f32 holds exactly in any summation
+    order, and most scores are shared by many items."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(-1, 2, (b, d)).astype(np.float32)
+    it = (rng.integers(-2, 3, (i, d)) * 0.25).astype(np.float32)
+    return u, it
+
+
+@pytest.mark.parametrize("k", [5, 12, 40])
+@pytest.mark.parametrize("masked", [False, True])
+def test_tied_scores_match_jax_fold(k, masked):
+    """On tied scores the port's plain version gives the JAX fold's ids (two
+    tiles in interpret mode): value descending, id ascending among ties."""
+    b, i, d = 6, 1024, 8
+    u, it = _tied(30 + k, b, i, d)
+    mask = None
+    if masked:
+        mask = (np.random.default_rng(31 + k).random((b, i)) < 0.3).astype(np.int8)
+        assert ((mask == 0).sum(1) >= k).all()   # at least k eligible items a row
+        jv, ji = jtp.streaming_mips_topk_masked(u, it, mask, k, tile=512, interpret=True)
+    else:
+        jv, ji = jtp.streaming_mips_topk(u, it, k, tile=512, interpret=True)
+    tv, ti = ttp.streaming_mips_topk(torch.from_numpy(u), torch.from_numpy(it), k,
+                                     None if mask is None else torch.from_numpy(mask))
+    tv, ti = tv.numpy(), ti.numpy()
+    np.testing.assert_array_equal(tv, np.asarray(jv))
+    np.testing.assert_array_equal(ti, np.asarray(ji))
+    same = tv[:, 1:] == tv[:, :-1]
+    assert same.any() and (ti[:, 1:][same] > ti[:, :-1][same]).all()
+
+
+_PAD_ID = 2 ** 31 - 1
+
+
+def _better(a, b):
+    """The kernels' total order on (value, id) pairs."""
+    return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def _merge_list(lst, buf):
+    """csrc/topk_f32.cu ``merge_list`` in Python: bitonic sort of the 64-entry
+    buffer (pads below everything), C[i] = max(L[i], B[K-1-i]) over the
+    buffer's best min(K, 64), then a bitonic merge of the K-entry list."""
+    k_len = len(lst)
+    b = buf + [(ttp.NEG_INF, _PAD_ID)] * (64 - len(buf))
+    size = 2
+    while size <= 64:
+        stride = size // 2
+        while stride:
+            nb = list(b)
+            for e in range(64):
+                best_here = ((e & stride) == 0) == ((e & size) == 0)
+                o = b[e ^ stride]
+                if _better(o, b[e]) if best_here else _better(b[e], o):
+                    nb[e] = o
+            b, stride = nb, stride // 2
+        size *= 2
+    c = list(lst)
+    for q in range(min(k_len, 64)):
+        i = k_len - 1 - q
+        if _better(b[q], c[i]):
+            c[i] = b[q]
+    stride = k_len // 2
+    while stride:
+        for a in range(k_len):
+            if a & stride == 0 and _better(c[a + stride], c[a]):
+                c[a], c[a + stride] = c[a + stride], c[a]
+        stride //= 2
+    return c
+
+
+def _emulate_fold(scores, excluded, k, order):
+    """Kernel B's fold for one user in Python: candidates offered in
+    ``order``, a 64-entry buffer merged whenever it is full and at the end."""
+    k_len = 32
+    while k_len < k:
+        k_len *= 2
+    lst, buf = [(ttp.NEG_INF, 0)] * k_len, []
+    for j in order:
+        if excluded[j] or not _better((scores[j], j), lst[k - 1]):
+            continue
+        if len(buf) == 64:
+            lst, buf = _merge_list(lst, buf), []
+            if not _better((scores[j], j), lst[k - 1]):
+                continue
+        buf.append((scores[j], j))
+    if buf:
+        lst = _merge_list(lst, buf)
+    return np.array([v for v, _ in lst[:k]], np.float32), np.array([j for _, j in lst[:k]])
+
+
+@pytest.mark.parametrize("k", [1, 12, 33, 256])
+def test_kernel_fold_matches_plain(k):
+    """The fold csrc/topk_f32.cu runs, emulated in Python, gives the plain
+    version's values and ids whatever order the candidates arrive in, on
+    tied scores with exclusions and on rows with fewer than k eligible
+    items."""
+    u, it = _tied(40 + k, 3, 700, 8)
+    scores = (u @ it.T).astype(np.float32)
+    excluded = np.random.default_rng(41 + k).random(scores.shape) < 0.4
+    excluded[2, 5:] = True                          # five eligible items
+    pv, pi = ttp.topk_fold_plain(
+        torch.from_numpy(np.where(excluded, ttp.NEG_INF, scores)), k)
+    rng = np.random.default_rng(42 + k)
+    for r in range(3):
+        order = rng.permutation(700) if r else np.arange(700)
+        v, ids = _emulate_fold(scores[r], excluded[r], k, order)
+        np.testing.assert_array_equal(v, pv[r].numpy())
+        np.testing.assert_array_equal(ids, pi[r].numpy())
