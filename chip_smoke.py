@@ -14,9 +14,16 @@ on one NVIDIA H100: ``python3 chip_smoke.py`` from the repository root.
    with and without a mask at B=256, I=104,547 (k=12 and k=256), on tied
    scores (ids equal to the plain version's) and at the B=512, I=270,336
    shape ``auto_mips_topk`` streams; the int8 streaming top-k (C) with and
-   without a mask. Each kernel's time, its plain version's time and one
-   PyTorch library call's time (``library_ms``, measured here only) are
-   taken with CUDA events.
+   without a mask, at k=1, 33 and 256, at the padded shape the server
+   streams, and bitwise against its plain version on exact ties, a user
+   with 3 eligible items, k=1 and 33, D=20 and D=7 (unaligned rows and
+   mask) and a catalog that is not 16-byte aligned. Each kernel's time, its
+   plain version's time and one PyTorch library call's time (measured here
+   only) are taken with CUDA events, two ways: device time with the host's
+   enqueue hidden (``device_ms``: ``ms`` and ``library_ms`` in the
+   ``kernels`` line) and the calls issued back to back, host work included
+   (``time_ms``: ``call_ms`` and ``library_call_ms``); ``host_ms`` is the
+   host's time to issue one wrapper call.
 3. Main path at full width: LightGCN defaults (D=32, K=4) over H&M
    cardinalities (1,371,980 users × 104,547 items, ~25M train edges) —
    ``select_propagation`` → ``lightgcn_forward`` through kernel A, a quantized
@@ -75,6 +82,30 @@ def time_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps):
+    """(device ms, host ms) of ``fn``, means over ``reps`` calls: device time
+    with the host's own time kept out (a device-side sleep holds the stream
+    while the host enqueues every call, so their kernels then run back to
+    back), and the host's time to issue one call. (``time_ms`` times calls
+    as a caller issues them, host work between launches included.)"""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 1_000_000)   # cycles: twice the host time at 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host_s * 1e3 / reps
 
 
 def bound(bytes_moved, ops, peak_ops):
@@ -178,7 +209,7 @@ def trace(torch, fn):
         if dev_us > 0:
             kernels[ev.key[:80]] = dict(ms=dev_us / 1e3, calls=ev.count)
     busy = sum(k["ms"] for k in kernels.values())
-    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:12])
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:16])
     out = dict(wall_ms=wall_ms, device_busy_ms=busy, device_idle_share=1.0 - busy / wall_ms,
                top=top)
     log("trace:", json.dumps(out))
@@ -322,6 +353,8 @@ def main() -> int:
                 torch, lambda: sp.pallas_segment_sum(plan, table, pg.gather_bf16), 20)
         a_time[f"{mode}_step"] = time_ms(torch, lambda: sp.propagate_pallas(
             pg, params.user_emb, params.item_emb), 10)
+        a_time[f"{mode}_step_device"], _ = device_ms(torch, lambda: sp.propagate_pallas(
+            pg, params.user_emb, params.item_emb), 10)
         a_time[f"{mode}_plain_step"] = time_ms(torch, lambda: (
             sp.pallas_segment_sum_plain(pg.to_user, params.item_emb, pg.gather_bf16),
             sp.pallas_segment_sum_plain(pg.to_item, params.user_emb, pg.gather_bf16)), 3)
@@ -355,7 +388,8 @@ def main() -> int:
         replaces="laplace_gnn_recommendation_tpu/ops/spmm_pallas.py:132 (_segsum_kernel)",
         max_abs_err=max(a_err.values()), tol=f"atol {TOL_SEGSUM[0]} + rtol {TOL_SEGSUM[1]}",
         max_abs_err_wide=a_err_wide, wide_d=WIDE_D,
-        ms=a_time["bf16_step"], plain_ms=a_time["bf16_plain_step"], bound_ms=a_bnd,
+        ms=a_time["bf16_step_device"], call_ms=a_time["bf16_step"],
+        plain_ms=a_time["bf16_plain_step"], bound_ms=a_bnd,
         bound_by=bounds["to_item"][1], library_ms=None,
         per="one propagation step in the bf16-gather mode auto takes at H&M size: "
             "both directions, 2 launches",
@@ -429,19 +463,25 @@ def main() -> int:
             nbytes = b * users.shape[1] * 4 + i * (qi.shape[1] + 4) + \
                 (b * i if mask is not None else 0) + b * k * 8
             bnd = bound(nbytes, 2 * b * i * users.shape[1], PEAK_INT8_S)
+        dev_ms, host_ms = device_ms(torch, run, 10)
         row = dict(kernel=kind, B=b, I=i, k=k, masked=mask is not None, max_abs_err=err,
-                   ms=time_ms(torch, run, 10), plain_ms=time_ms(torch, plain, 3),
-                   library_ms=None if lib is None else time_ms(torch, lib, 10),
+                   call_ms=time_ms(torch, run, 10), device_ms=dev_ms, host_ms=host_ms,
+                   plain_ms=time_ms(torch, plain, 3),
+                   library_call_ms=None if lib is None else time_ms(torch, lib, 10),
+                   library_device_ms=None if lib is None else device_ms(torch, lib, 10)[0],
                    bound_ms=bnd[0], bound_by=bnd[1])
         log(f"topk: {json.dumps(row)}")
         detail.append(row)
         return row
 
+    c_by_k = {}   # kernel C at B=256, I=104,547, masked, by k: the fold's share
     for m in (None, mask256):
         topk_case("f32", u256, items, 12, m)
-        topk_case("int8", u256, (q_items, scales), 12, m)
+        c_by_k[12] = topk_case("int8", u256, (q_items, scales), 12, m)
+    for k_c in (1, 33):
+        c_by_k[k_c] = topk_case("int8", u256, (q_items, scales), k_c, mask256)
     b_k256 = topk_case("f32", u256, items, 256, mask256)
-    topk_case("int8", u256, (q_items, scales), 256, mask256)
+    c_k256 = c_by_k[256] = topk_case("int8", u256, (q_items, scales), 256, mask256)
     # ties: scores on an exact grid (small integers times 1/4), the same f32
     # value in any summation order, so values and ids must equal the plain
     # version's exactly
@@ -456,6 +496,49 @@ def main() -> int:
                 fail(f"topk_f32 on tied scores (k={k_tie}, masked={m is not None}): "
                      f"not equal to the plain version")
     log("topk_f32 tied scores: values and ids equal to the plain version")
+
+    # kernel C where it can differ from its plain version; each case
+    # bitwise equal to it
+    def c_exact(name, users, qi, si, k, mask):
+        pv, pi = tp.streaming_mips_topk_int8_plain(users, qi, si, k, mask)
+        v, i = tp.streaming_mips_topk_int8(users, qi, si, k, mask)
+        torch.cuda.synchronize()
+        if not (torch.equal(v, pv) and torch.equal(i, pi)):
+            fail(f"topk_int8 {name}: not bitwise equal to the plain version")
+        return pv, pi
+
+    half = NUM_ITEMS // 2   # exact ties: the catalog's second half repeats its first
+    dup = items.clone()
+    dup[half:2 * half] = items[:half]
+    dq, ds = tp.row_quantize(dup)
+    for k_tie in (12, 256):
+        for m in (None, mask256):
+            tv, _ = c_exact(f"ties k={k_tie} masked={m is not None}", u256, dq, ds, k_tie, m)
+            if not bool((tv[:, 1:] == tv[:, :-1]).any()):
+                fail("topk_int8 tie case holds no tied scores")
+    three = (17, 40_000, NUM_ITEMS - 1)   # user 5 may take these three items alone
+    m3 = mask256.clone()
+    m3[5] = 1
+    m3[5, list(three)] = 0
+    tv, ti = c_exact("3 eligible items", u256, q_items, scales, 12, m3)
+    if not (sorted(ti[5, :3].tolist()) == list(three) and bool((ti[5, 3:] == 0).all())
+            and bool((tv[5, 3:] == tp.NEG_INF).all())):
+        fail("topk_int8: the user with 3 eligible items is not (3 items, then NEG_INF / id 0)")
+    for k_odd in (1, 33):
+        for m in (None, mask256):
+            c_exact(f"k={k_odd} masked={m is not None}", u256, q_items, scales, k_odd, m)
+    for d_odd in (20, 7):   # word and byte staging; the mask rows are unaligned (I odd)
+        qo, so = tp.row_quantize(torch.randn((NUM_ITEMS, d_odd), generator=gen_t, device=dev))
+        uo = torch.randn((256, d_odd), generator=gen_t, device=dev)
+        for m in (None, mask256):
+            c_exact(f"D={d_odd} masked={m is not None}", uo, qo, so, 12, m)
+    q_off = torch.zeros(NUM_ITEMS * d + 16, dtype=torch.int8, device=dev)[1:1 + NUM_ITEMS * d]
+    q_off = q_off.view(NUM_ITEMS, d)
+    q_off.copy_(q_items)
+    s_off = torch.zeros(NUM_ITEMS + 4, device=dev)[1:1 + NUM_ITEMS].view(1, NUM_ITEMS)
+    s_off.copy_(scales)
+    c_exact("catalog and scales not 16-byte aligned", u256, q_off, s_off, 12, mask256)
+    log("topk_int8 exact cases: values and ids equal to the plain version")
 
     # the shapes the main path gives B and C
     gen_big = torch.Generator(device=dev).manual_seed(1)
@@ -554,6 +637,8 @@ def main() -> int:
     for key in ("segsum", "topk_f32", "topk_int8"):
         if launches.get(key, 0) <= 0:
             fail(f"kernel {key} was not launched on the main path")
+    if launches["topk_int8"] != -(-SERVE_USERS // 256):
+        fail(f"kernel C launched {launches['topk_int8']} times for {SERVE_USERS} users")
     record["checks"] = dict(forward_mode="bf16" if prop.gather_bf16 else "f32",
                             forward_step_max_abs_err=step_err, forward_max_abs_err=fwd_err,
                             forward_vs_f32_plain=bf16_vs_f32, int8_f32_top12_agreement=agree,
@@ -570,23 +655,33 @@ def main() -> int:
     record["trace"] = trace(torch, main_path_again)
 
     kern["segsum"]["launches"] = launches["segsum"]
+
+    def timed(row, prefix=""):
+        """A timed row's numbers for the ``kernels`` line: ``ms`` and
+        ``library_ms`` device time, ``call_ms`` and ``library_call_ms``
+        call time."""
+        out = dict(ms=row["device_ms"], call_ms=row["call_ms"], host_ms=row["host_ms"],
+                   library_ms=row["library_device_ms"], library_call_ms=row["library_call_ms"])
+        if not prefix:
+            out.update(plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                       bound_by=row["bound_by"])
+        return {prefix + key: v for key, v in out.items()}
     kern["topk_f32"] = dict(
         name="topk_f32", route="cuda",
         source="laplace_gnn_recommendation_tpu_torch/csrc/topk_f32.cu",
         replaces="laplace_gnn_recommendation_tpu/ops/topk_pallas.py:69 (_kernel), :93 (_kernel_masked)",
-        launches=launches["topk_f32"], max_abs_err=b_main["max_abs_err"], ms=b_main["ms"],
-        plain_ms=b_main["plain_ms"], bound_ms=b_main["bound_ms"], bound_by=b_main["bound_by"],
-        library_ms=b_main["library_ms"], per=f"B={BIG_B} I={BIG_I} k=12 masked",
-        k256_ms=b_k256["ms"], k256_library_ms=b_k256["library_ms"],
-        k256_per="B=256 I=104547 k=256 masked",
+        launches=launches["topk_f32"], max_abs_err=b_main["max_abs_err"], **timed(b_main),
+        per=f"B={BIG_B} I={BIG_I} k=12 masked",
+        **timed(b_k256, "k256_"), k256_per="B=256 I=104547 k=256 masked",
     )
     kern["topk_int8"] = dict(
         name="topk_int8", route="cuda", source="laplace_gnn_recommendation_tpu_torch/csrc/topk.cu",
         replaces="laplace_gnn_recommendation_tpu/ops/topk_pallas.py:179 (_kernel_int8), "
                  ":208 (_kernel_int8_masked)",
-        launches=launches["topk_int8"], max_abs_err=c_main["max_abs_err"], ms=c_main["ms"],
-        plain_ms=c_main["plain_ms"], bound_ms=c_main["bound_ms"], bound_by=c_main["bound_by"],
-        library_ms=c_main["library_ms"], per=f"B=256 I={serve_i} k=12 masked",
+        launches=launches["topk_int8"], max_abs_err=c_main["max_abs_err"], **timed(c_main),
+        per=f"B=256 I={serve_i} k=12 masked",
+        **timed(c_k256, "k256_"), k256_per="B=256 I=104547 k=256 masked",
+        by_k_ms={k_c: c_by_k[k_c]["device_ms"] for k_c in sorted(c_by_k)},
     )
     record["kernels"] = list(kern.values())
     log(json.dumps({"kernels": record["kernels"]}))

@@ -97,17 +97,18 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, float]:
 
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library ``lib<name>.so`` (built first if needed), with
-    ``argtypes`` set from ``signatures`` and every restype ``c_int``."""
+    ``argtypes`` set from ``signatures`` at its first load and every restype
+    ``c_int`` (``c_int64`` for ``*_bytes``)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build_all()
             lib = ctypes.CDLL(_lib_path(name))
+            for fn, argtypes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int64 if fn.endswith("_bytes") else ctypes.c_int
             _libs[name] = lib
-        for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int64 if fn.endswith("_bytes") else ctypes.c_int
         return lib
 
 

@@ -29,8 +29,9 @@
 //   fall in distinct banks. Where the mask rows are 16-byte aligned, the
 //   mask tile streams in beside the item tile the same way; otherwise it is
 //   read straight from device memory.
-// * Fold: a half-warp holds all scores of 4 users, so a warp owns 8 users'
-//   lists outright and folds without block barriers. A score that beats its
+// * Fold (topk_fold.cuh, shared with kernel C): a half-warp holds all
+//   scores of 4 users, so a warp owns 8 users' lists outright and folds
+//   without block barriers. A score that beats its
 //   user's current k-th entry goes into that user's 64-entry candidate
 //   buffer in shared memory; each lane offers its candidates one at a time
 //   and takes its slot from a shared counter (an integer atomic), so a tile
@@ -42,162 +43,14 @@
 //   for the instruction cache. The order in which candidates reach a buffer
 //   varies from run to run; the result does not, as every comparison uses
 //   the total order and no candidate that belongs in the top k is dropped.
-// * A second kernel merges each user's per-split lists the same way.
-#include <cfloat>
-#include <cstdint>
-#include <cuda_runtime.h>
+// * A second kernel (topk_fold.cuh) merges each user's per-split lists the
+//   same way.
+#include "topk_fold.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUsers = 64;    // users per block: 8 per warp, 4 per thread
 constexpr int kTile = 128;    // items per staged tile: 8 per thread
-constexpr int kBuf = 64;      // candidate buffer entries per user
 constexpr int kMinSplit = 4 * kTile;
-constexpr float kNegInf = -FLT_MAX;   // numpy's finfo(float32).min
-constexpr int32_t kPadId = INT32_MAX; // pads the buffer; below every real entry and fill
-
-__device__ __forceinline__ bool better(float av, int32_t ai, float bv, int32_t bi) {
-  return av > bv || (av == bv && ai < bi);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// Merges the first `cnt` buffer entries (lv/li[K .. K + cnt)) into the sorted
-// list lv/li[0 .. K), K = 32 · kPer; while it runs, entry e of the list (and
-// of the buffer) is held by lane e % 32 in register e / 32. Warp-collective.
-// Not inlined: the fold calls it from several unrolled sites, and inlined
-// copies would crowd the instruction cache.
-template <int kPer>
-__device__ __noinline__ void merge_list(float* lv, int32_t* li, int cnt, int lane) {
-  constexpr int K = 32 * kPer;
-  __syncwarp();
-  float bv[2];
-  int32_t bi[2];
-  float v[kPer];
-  int32_t id[kPer];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int e = 32 * r + lane;
-    bv[r] = e < cnt ? lv[K + e] : kNegInf;
-    bi[r] = e < cnt ? li[K + e] : kPadId;
-  }
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    v[r] = lv[32 * r + lane];
-    id[r] = li[32 * r + lane];
-  }
-  // bitonic sort of the 64 buffer entries, best first
-#pragma unroll
-  for (int size = 2; size <= 64; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (stride == 32) {   // size 64: registers 0 and 1 of one lane
-        if (better(bv[1], bi[1], bv[0], bi[0])) {
-          const float tv = bv[0];
-          const int32_t ti = bi[0];
-          bv[0] = bv[1];
-          bi[0] = bi[1];
-          bv[1] = tv;
-          bi[1] = ti;
-        }
-        continue;
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int e = 32 * r + lane;
-        const float ov = __shfl_xor_sync(kFull, bv[r], stride);
-        const int32_t oi = __shfl_xor_sync(kFull, bi[r], stride);
-        const bool best_here = ((e & stride) == 0) == ((e & size) == 0);
-        if (best_here ? better(ov, oi, bv[r], bi[r]) : better(bv[r], bi[r], ov, oi)) {
-          bv[r] = ov;
-          bi[r] = oi;
-        }
-      }
-    }
-  }
-  // C[i] = max(L[i], B[K-1-i]) holds the top K of both and is bitonic (only
-  // the buffer's best K take part)
-#pragma unroll
-  for (int rr = 0; rr < (kPer < 2 ? kPer : 2); ++rr) {
-    const int r = kPer - 1 - rr;   // list register; its partner is buffer register rr
-    const float rv = __shfl_sync(kFull, bv[rr], 31 - lane);
-    const int32_t ri = __shfl_sync(kFull, bi[rr], 31 - lane);
-    if (better(rv, ri, v[r], id[r])) {
-      v[r] = rv;
-      id[r] = ri;
-    }
-  }
-  // bitonic merge, best first: strides of 32 and more pair registers of a
-  // lane, smaller strides pair lanes
-#pragma unroll
-  for (int m = kPer / 2; m > 0; m >>= 1) {
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      if ((r & m) == 0 && better(v[r + m], id[r + m], v[r], id[r])) {
-        const float tv = v[r];
-        const int32_t ti = id[r];
-        v[r] = v[r + m];
-        id[r] = id[r + m];
-        v[r + m] = tv;
-        id[r + m] = ti;
-      }
-    }
-  }
-#pragma unroll
-  for (int stride = 16; stride > 0; stride >>= 1) {
-    const bool lower = (lane & stride) == 0;
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const float ov = __shfl_xor_sync(kFull, v[r], stride);
-      const int32_t oi = __shfl_xor_sync(kFull, id[r], stride);
-      if (lower ? better(ov, oi, v[r], id[r]) : better(v[r], id[r], ov, oi)) {
-        v[r] = ov;
-        id[r] = oi;
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    lv[32 * r + lane] = v[r];
-    li[32 * r + lane] = id[r];
-  }
-  __syncwarp();
-}
-
-__device__ void merge_buffer(float* lv, int32_t* li, int K, int cnt, int lane) {
-  switch (K) {
-    case 32: merge_list<1>(lv, li, cnt, lane); break;
-    case 64: merge_list<2>(lv, li, cnt, lane); break;
-    case 128: merge_list<4>(lv, li, cnt, lane); break;
-    default: merge_list<8>(lv, li, cnt, lane); break;
-  }
-}
-
-// One of a thread's 8 scores, picked without indexing registers at run time.
-__device__ __forceinline__ float pick(const float (&a)[8], int j) {
-  float v = a[0];
-#pragma unroll
-  for (int q = 1; q < 8; ++q) v = j == q ? a[q] : v;
-  return v;
-}
-
-__host__ __device__ int list_len(int k) {
-  int K = 32;
-  while (K < k) K <<= 1;
-  return K;
-}
 
 size_t partial_smem_bytes(int d, int k) {
   const int stride = d + 4;
@@ -262,11 +115,7 @@ __global__ void __launch_bounds__(kThreads, 2) topk_f32_partial_kernel(
         : make_float4(0.f, 0.f, 0.f, 0.f);
     *reinterpret_cast<float4*>(us + u * stride + 4 * c) = v;
   }
-  for (int idx = threadIdx.x; idx < kUsers * L; idx += kThreads) {
-    lv[idx] = kNegInf;
-    li[idx] = 0;
-  }
-  if (threadIdx.x < kUsers) cnt[threadIdx.x] = 0;
+  init_lists(lv, li, cnt, L);
   __syncthreads();
   float thr_v[4];
   int32_t thr_i[4];
@@ -326,12 +175,9 @@ __global__ void __launch_bounds__(kThreads, 2) topk_f32_partial_kernel(
         }
       }
     }
-    // fold: each lane offers its candidates one at a time; a shared counter
-    // gives each its slot in the user's buffer, and a buffer that fills is
-    // merged at once, after which the lanes that found it full offer again
+    // fold: each lane offers its candidates one at a time (topk_fold.cuh)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int ub = 4 * ty + i;
       uint32_t pend = 0;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -339,104 +185,11 @@ __global__ void __launch_bounds__(kThreads, 2) topk_f32_partial_kernel(
         const bool c = ((ok_bits >> (8 * i + j)) & 1u) && better(acc[i][j], id, thr_v[i], thr_i[i]);
         pend |= static_cast<uint32_t>(c) << j;
       }
-      while (__any_sync(kFull, pend != 0)) {
-        bool over = false;
-        if (pend != 0) {
-          const int j = __ffs(pend) - 1;
-          const int pos = atomicAdd(cnt + ub, 1);
-          over = pos >= kBuf;
-          if (!over) {
-            lv[ub * L + K + pos] = pick(acc[i], j);
-            li[ub * L + K + pos] = static_cast<int32_t>(t0 + tx + 16 * j);
-            pend &= pend - 1;
-          }
-        }
-        const unsigned full = __ballot_sync(kFull, over);
-        if (full == 0) continue;  // uniform
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if ((full >> (16 * h)) & 0xffffu) {
-            const int u = 4 * (2 * warp + h) + i;
-            merge_buffer(lv + u * L, li + u * L, K, kBuf, lane);
-            if (lane == 0) cnt[u] = 0;
-          }
-        }
-        __syncwarp();
-        thr_v[i] = lv[ub * L + k - 1];
-        thr_i[i] = li[ub * L + k - 1];
-      }
+      offer_user(lv, li, cnt, K, L, k, i, warp, lane, tx, t0, acc[i], pend, thr_v[i], thr_i[i]);
     }
     __syncthreads();  // this tile's buffers are staged again two tiles on
   }
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int u = 4 * (2 * warp + h) + i;
-      const int c = cnt[u];
-      if (c > 0) merge_buffer(lv + u * L, li + u * L, K, c, lane);
-    }
-  __syncwarp();
-  for (int u = 8 * warp; u < 8 * warp + 8; ++u) {
-    if (b0 + u < b_total) {
-      const int64_t out = ((b0 + u) * num_splits + split) * k;
-      for (int p = lane; p < k; p += 32) {
-        part_v[out + p] = lv[u * L + p];
-        part_i[out + p] = li[u * L + p];
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) topk_f32_merge_kernel(
-    const float* __restrict__ part_v, const int32_t* __restrict__ part_i, int64_t b_total,
-    int64_t num_splits, int k, float* __restrict__ out_v, int32_t* __restrict__ out_i) {
-  extern __shared__ float4 smem4[];
-  const int K = list_len(k);
-  const int L = K + kBuf;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  if (b >= b_total) return;  // no block-wide barrier below
-  float* lv = reinterpret_cast<float*>(smem4) + warp * L;
-  int32_t* li = reinterpret_cast<int32_t*>(reinterpret_cast<float*>(smem4) + kWarps * L) + warp * L;
-  for (int p = lane; p < K; p += 32) {
-    lv[p] = kNegInf;
-    li[p] = 0;
-  }
-  __syncwarp();
-  float thr_v = kNegInf;
-  int32_t thr_i = 0;
-  int cnt = 0;
-  const int64_t total = num_splits * k;
-  const float* pv = part_v + b * total;
-  const int32_t* pi = part_i + b * total;
-  for (int64_t c0 = 0; c0 < total; c0 += 32) {
-    const int64_t idx = c0 + lane;
-    const float v = idx < total ? pv[idx] : kNegInf;
-    const int32_t id = idx < total ? pi[idx] : 0;
-    const bool c = idx < total && better(v, id, thr_v, thr_i);
-    const unsigned bal = __ballot_sync(kFull, c);
-    if (bal == 0) continue;  // uniform
-    const int add = __popc(bal);
-    if (cnt + add > kBuf) {
-      merge_buffer(lv, li, K, cnt, lane);
-      cnt = 0;
-      thr_v = lv[k - 1];
-      thr_i = li[k - 1];
-    }
-    if (c) {
-      const int pos = cnt + __popc(bal & ((1u << lane) - 1u));
-      lv[K + pos] = v;
-      li[K + pos] = id;
-    }
-    cnt += add;
-    __syncwarp();
-  }
-  if (cnt > 0) merge_buffer(lv, li, K, cnt, lane);
-  for (int p = lane; p < k; p += 32) {
-    out_v[b * k + p] = lv[p];
-    out_i[b * k + p] = li[p];
-  }
+  write_lists(lv, li, cnt, K, L, k, warp, lane, b0, b_total, split, num_splits, part_v, part_i);
 }
 
 }  // namespace
@@ -450,29 +203,9 @@ extern "C" int64_t topk_f32_smem_bytes(int64_t d, int64_t k) {
 // occupancy the scoring kernel reaches, each split at least kMinSplit items.
 // Writes {num_splits, split_len} to `plan`.
 extern "C" int topk_f32_plan(int64_t b, int64_t i, int64_t d, int64_t k, void* plan) {
-  const size_t smem = partial_smem_bytes(static_cast<int>(d), static_cast<int>(k));
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_f32_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, topk_f32_partial_kernel,
-                                                        kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int64_t groups = b > 0 ? (b + kUsers - 1) / kUsers : 1;
-  int64_t s = (static_cast<int64_t>(per_sm) * sms + groups - 1) / groups;
-  const int64_t most = (i + kMinSplit - 1) / kMinSplit;
-  if (s > most) s = most;
-  if (s > 65535) s = 65535;
-  if (s < 1) s = 1;
-  int64_t len = (i + s - 1) / s;
-  len = (len + kTile - 1) / kTile * kTile;  // whole tiles, but the last
-  int64_t* out = static_cast<int64_t*>(plan);
-  out[0] = i > 0 ? (i + len - 1) / len : 1;
-  out[1] = len > 0 ? len : kTile;
-  return 0;
+  return plan_splits(topk_f32_partial_kernel,
+                     partial_smem_bytes(static_cast<int>(d), static_cast<int>(k)), b, i, kTile,
+                     kMinSplit, static_cast<int64_t*>(plan));
 }
 
 extern "C" int topk_f32_launch(const void* users, const void* items, const void* mask,
@@ -497,12 +230,8 @@ extern "C" int topk_f32_launch(const void* users, const void* items, const void*
       split_len, static_cast<float*>(part_v), static_cast<int32_t*>(part_i));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t msmem = (sizeof(float) + sizeof(int32_t)) * kWarps *
-                       static_cast<size_t>(list_len(static_cast<int>(k)) + kBuf);
-  topk_f32_merge_kernel<<<static_cast<unsigned>((b + kWarps - 1) / kWarps), kThreads, msmem,
-                          st>>>(static_cast<const float*>(part_v),
-                                static_cast<const int32_t*>(part_i), b, num_splits,
-                                static_cast<int>(k), static_cast<float*>(out_v),
-                                static_cast<int32_t*>(out_i));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_merge(static_cast<const float*>(part_v),
+                                       static_cast<const int32_t*>(part_i), b, num_splits, k,
+                                       static_cast<float*>(out_v), static_cast<int32_t*>(out_i),
+                                       st));
 }

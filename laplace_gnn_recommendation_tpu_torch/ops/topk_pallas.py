@@ -6,8 +6,11 @@ replaces ``_kernel_int8`` and ``_kernel_int8_masked``. Each takes an
 optional int8 exclusion mask. The [B, I] score matrix never reaches device
 memory: item tiles are staged in shared memory and folded into a running
 k-best list per user; the catalog is cut into ranges that blocks fold in
-parallel, and a merge pass combines each user's lists. Kernel B takes
-widths that are a multiple of 4 on 16-byte aligned tensors.
+parallel (each kernel's C-side plan sizes them from its occupancy), and a
+merge pass combines each user's lists. Both share that fold
+(``csrc/topk_fold.cuh``). Kernel B takes widths that are a multiple of 4 on
+16-byte aligned tensors; kernel C takes any width. Each stages item tiles of
+128 rows.
 
 Semantics (those of the Pallas fold ``_fold_topk``): the k best items by
 (score descending, item id ascending); slots no item fills hold
@@ -20,6 +23,7 @@ plain version (``*_plain``: full scores, stable sort) for tensors on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -29,20 +33,24 @@ from .. import _build
 
 NEG_INF = float(np.finfo(np.float32).min)
 MAX_K = 256
-_USERS_PER_BLOCK = 8
-_MIN_SPLIT_ITEMS = 1024
 _MAX_SMEM_BYTES = 232_448
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    "topk_int8_launch": [_P, _P, _P, _P, _P] + [_I64] * 6 + [_P] * 5,
-    "topk_smem_bytes": [_I64, _I64, _I64],
+    "topk_int8_launch": [_P] * 5 + [_I64] * 6 + [_P] * 5,
+    "topk_int8_plan": [_I64] * 4 + [_P],
+    "topk_smem_bytes": [_I64, _I64],
 }
 _F32_SIGNATURES = {
     "topk_f32_launch": [_P, _P, _P] + [_I64] * 6 + [_P] * 5,
     "topk_f32_plan": [_I64] * 4 + [_P],
     "topk_f32_smem_bytes": [_I64, _I64],
+}
+# per kernel: (library, its signatures, its shared-memory and plan entry points)
+_KERNELS = {
+    "topk_int8": ("topk", _SIGNATURES, "topk_smem_bytes", "topk_int8_plan"),
+    "topk_f32": ("topk_f32", _F32_SIGNATURES, "topk_f32_smem_bytes", "topk_f32_plan"),
 }
 
 
@@ -142,33 +150,28 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         )
 
 
-def _splits(b: int, i: int, device) -> Tuple[int, int]:
-    """(num_splits, split_len): enough blocks for a few per SM, at least
-    ``_MIN_SPLIT_ITEMS`` items a split."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    groups = -(-b // _USERS_PER_BLOCK)
-    s = -(-4 * sms // groups)
-    s = max(1, min(s, -(-i // _MIN_SPLIT_ITEMS), 65535))
-    return s, -(-i // s)
-
-
-def _launch_int8(b: int, i: int, d: int, k: int, device, args_in):
-    lib = _build.load("topk", _SIGNATURES)
-    smem = lib.topk_smem_bytes(d, k, 1)
+@functools.lru_cache(maxsize=None)
+def _plan(kernel: str, b: int, i: int, d: int, k: int, device_index: int) -> Tuple[int, int]:
+    """(num_splits, split_len) of the catalog for kernel ``kernel`` on the
+    current card, from its C-side plan. Cached per shape, so a server's
+    repeated batches skip the plan's CUDA queries. Raises where a block at
+    (d, k) needs more shared memory than the card has."""
+    source, signatures, smem_fn, plan_fn = _KERNELS[kernel]
+    lib = _build.load(source, signatures)
+    smem = getattr(lib, smem_fn)(d, k)
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(f"D={d}, k={k} needs {smem} B of shared memory per block")
-    s, split_len = _splits(b, i, device)
-    part_v = torch.empty((b, s, k), dtype=torch.float32, device=device)
-    part_i = torch.empty((b, s, k), dtype=torch.int32, device=device)
-    vals = torch.empty((b, k), dtype=torch.float32, device=device)
-    idx = torch.empty((b, k), dtype=torch.int32, device=device)
-    rc = lib.topk_int8_launch(
-        *args_in, b, i, d, k, s, split_len,
-        part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        _build.stream_ptr(device),
-    )
-    _build.check(rc, "topk_int8_launch")
-    return vals, idx
+    plan = (ctypes.c_int64 * 2)()
+    _build.check(getattr(lib, plan_fn)(b, i, d, k, ctypes.cast(plan, _P)), plan_fn)
+    return int(plan[0]), int(plan[1])
+
+
+def _outputs(b: int, s: int, k: int, device):
+    """The per-split lists (part_v, part_i) and the result (vals, idx)."""
+    return (torch.empty((b, s, k), dtype=torch.float32, device=device),
+            torch.empty((b, s, k), dtype=torch.int32, device=device),
+            torch.empty((b, k), dtype=torch.float32, device=device),
+            torch.empty((b, k), dtype=torch.int32, device=device))
 
 
 def _mask_ptr(excl_mask, b, i, device):
@@ -202,17 +205,9 @@ def streaming_mips_topk(
             f"tensors, got D={d}"
         )
     mask_ptr = _mask_ptr(excl_mask, b, i, dev)
+    s, split_len = _plan("topk_f32", b, i, d, k, dev.index)
+    part_v, part_i, vals, idx = _outputs(b, s, k, dev)
     lib = _build.load("topk_f32", _F32_SIGNATURES)
-    smem = lib.topk_f32_smem_bytes(d, k)
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"D={d}, k={k} needs {smem} B of shared memory per block")
-    plan = (ctypes.c_int64 * 2)()
-    _build.check(lib.topk_f32_plan(b, i, d, k, ctypes.cast(plan, _P)), "topk_f32_plan")
-    s, split_len = plan
-    part_v = torch.empty((b, s, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, s, k), dtype=torch.int32, device=dev)
-    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((b, k), dtype=torch.int32, device=dev)
     rc = lib.topk_f32_launch(
         user_emb.data_ptr(), item_emb.data_ptr(), mask_ptr, b, i, d, k, s, split_len,
         part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
@@ -255,9 +250,15 @@ def streaming_mips_topk_int8(
     mask_ptr = _mask_ptr(excl_mask, b, i, dev)
     qu, su = row_quantize(user_emb.float())
     qu, su = qu.contiguous(), su.reshape(-1).contiguous()
-    out = _launch_int8(
-        b, i, d, k, dev,
-        (qu.data_ptr(), su.data_ptr(), q_items.data_ptr(), item_scales.data_ptr(), mask_ptr),
+    s, split_len = _plan("topk_int8", b, i, d, k, dev.index)
+    part_v, part_i, vals, idx = _outputs(b, s, k, dev)
+    lib = _build.load("topk", _SIGNATURES)
+    rc = lib.topk_int8_launch(
+        qu.data_ptr(), su.data_ptr(), q_items.data_ptr(), item_scales.data_ptr(), mask_ptr,
+        b, i, d, k, s, split_len,
+        part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+        _build.stream_ptr(dev),
     )
+    _build.check(rc, "topk_int8_launch")
     _build.launches["topk_int8"] += 1
-    return out
+    return vals, idx

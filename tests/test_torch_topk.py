@@ -98,9 +98,16 @@ def test_row_quantize_bitwise_matches_jax():
     assert tq.dtype == torch.int8 and ts.shape == (1, 50)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_streaming_int8_bitwise_matches_jax_interpret(masked):
-    b, i, d, k = 8, 1024, 32, 10
+@pytest.mark.parametrize("masked,d,k", [
+    pytest.param(False, 32, 10, id="False"),
+    pytest.param(True, 32, 10, id="True"),
+    pytest.param(False, 32, 33, id="k33-False"),   # a list of K=64 entries
+    pytest.param(True, 32, 33, id="k33-True"),
+    pytest.param(False, 20, 12, id="d20-False"),   # the kernel's unaligned paths
+    pytest.param(True, 20, 12, id="d20-True"),
+])
+def test_streaming_int8_bitwise_matches_jax_interpret(masked, d, k):
+    b, i = 8, 1024
     u, it = _gauss(7, b, d), _gauss(8, i, d)
     jq, js = jtp.row_quantize(it)
     mask = None
@@ -259,7 +266,7 @@ def _better(a, b):
 
 
 def _merge_list(lst, buf):
-    """csrc/topk_f32.cu ``merge_list`` in Python: bitonic sort of the 64-entry
+    """csrc/topk_fold.cuh ``merge_list`` in Python: bitonic sort of the 64-entry
     buffer (pads below everything), C[i] = max(L[i], B[K-1-i]) over the
     buffer's best min(K, 64), then a bitonic merge of the K-entry list."""
     k_len = len(lst)
@@ -290,41 +297,185 @@ def _merge_list(lst, buf):
     return c
 
 
-def _emulate_fold(scores, excluded, k, order):
-    """Kernel B's fold for one user in Python: candidates offered in
-    ``order``, a 64-entry buffer merged whenever it is full and at the end."""
+def _list_len(k):
     k_len = 32
     while k_len < k:
         k_len *= 2
-    lst, buf = [(ttp.NEG_INF, 0)] * k_len, []
+    return k_len
+
+
+def _emulate_fold(scores, excluded, k, order, ids=None):
+    """The scoring kernels' fold (csrc/topk_fold.cuh) for one user in Python:
+    candidates offered in ``order``, a 64-entry buffer merged whenever it is
+    full and at the end. Returns the sorted list of K (value, id) pairs;
+    ``ids`` maps positions to item ids (default: the positions)."""
+    ids = np.arange(len(scores)) if ids is None else ids
+    lst, buf = [(ttp.NEG_INF, 0)] * _list_len(k), []
     for j in order:
-        if excluded[j] or not _better((scores[j], j), lst[k - 1]):
+        cand = (scores[j], int(ids[j]))
+        if excluded[j] or not _better(cand, lst[k - 1]):
             continue
         if len(buf) == 64:
             lst, buf = _merge_list(lst, buf), []
-            if not _better((scores[j], j), lst[k - 1]):
+            if not _better(cand, lst[k - 1]):
                 continue
-        buf.append((scores[j], j))
+        buf.append(cand)
     if buf:
         lst = _merge_list(lst, buf)
-    return np.array([v for v, _ in lst[:k]], np.float32), np.array([j for _, j in lst[:k]])
+    return lst
 
 
-@pytest.mark.parametrize("k", [1, 12, 33, 256])
-def test_kernel_fold_matches_plain(k):
-    """The fold csrc/topk_f32.cu runs, emulated in Python, gives the plain
+def _emulate_merge(parts, k):
+    """``topk_merge_kernel`` for one user: the per-split lists of k entries
+    read 32 at a time in split order; a batch of candidates that would
+    overflow the 64-entry buffer merges the buffer first."""
+    lst, buf = [(ttp.NEG_INF, 0)] * _list_len(k), []
+    flat = [e for p in parts for e in p[:k]]
+    for c0 in range(0, len(flat), 32):
+        cands = [e for e in flat[c0:c0 + 32] if _better(e, lst[k - 1])]
+        if cands and len(buf) + len(cands) > 64:
+            lst, buf = _merge_list(lst, buf), []
+        buf += cands
+    if buf:
+        lst = _merge_list(lst, buf)
+    return lst[:k]
+
+
+def _fold_case(kind, k):
+    """Scores [3, 700] as a kernel forms them, the exclusions, and the plain
+    version's (values, ids). f32: scores on an exact grid. int8: a catalog
+    whose second half repeats its first, so equal codes and scales give
+    exactly tied dequantized scores (float(raw) · su) · si."""
+    excluded = np.random.default_rng(41 + k).random((3, 700)) < 0.4
+    excluded[2, 5:] = True                          # five eligible items
+    if kind == "f32":
+        u, it = _tied(40 + k, 3, 700, 8)
+        scores = (u @ it.T).astype(np.float32)
+        pv, pi = ttp.topk_fold_plain(
+            torch.from_numpy(np.where(excluded, ttp.NEG_INF, scores)), k)
+        return scores, excluded, pv.numpy(), pi.numpy()
+    u, it = _gauss(40 + k, 3, 8), _gauss(43 + k, 700, 8)
+    it[350:] = it[:350]
+    q, s = ttp.row_quantize(torch.from_numpy(it))
+    qu, su = ttp.row_quantize(torch.from_numpy(u))
+    raw = qu.numpy().astype(np.int32) @ q.numpy().astype(np.int32).T
+    scores = (raw.astype(np.float32) * su.numpy().reshape(-1, 1)) * s.numpy()
+    pv, pi = ttp.streaming_mips_topk_int8_plain(
+        torch.from_numpy(u), q, s, k, torch.from_numpy(excluded.astype(np.int8)))
+    pv, pi = pv.numpy(), pi.numpy()
+    if k > 1:
+        assert (pv[:, 1:] == pv[:, :-1])[pv[:, 1:] > ttp.NEG_INF].any()   # exact ties
+    return scores, excluded, pv, pi
+
+
+def _fold_params():
+    """(kind, k) cases; kernel B's keep their ids of one parameter."""
+    return [pytest.param(kind, k, id=str(k) if kind == "f32" else f"int8-{k}")
+            for kind in ("f32", "int8") for k in (1, 12, 33, 256)]
+
+
+@pytest.mark.parametrize("kind,k", _fold_params())
+def test_kernel_fold_matches_plain(kind, k):
+    """The fold kernels B and C share, emulated in Python, gives the plain
     version's values and ids whatever order the candidates arrive in, on
     tied scores with exclusions and on rows with fewer than k eligible
     items."""
-    u, it = _tied(40 + k, 3, 700, 8)
-    scores = (u @ it.T).astype(np.float32)
-    excluded = np.random.default_rng(41 + k).random(scores.shape) < 0.4
-    excluded[2, 5:] = True                          # five eligible items
-    pv, pi = ttp.topk_fold_plain(
-        torch.from_numpy(np.where(excluded, ttp.NEG_INF, scores)), k)
+    scores, excluded, pv, pi = _fold_case(kind, k)
     rng = np.random.default_rng(42 + k)
     for r in range(3):
         order = rng.permutation(700) if r else np.arange(700)
-        v, ids = _emulate_fold(scores[r], excluded[r], k, order)
-        np.testing.assert_array_equal(v, pv[r].numpy())
-        np.testing.assert_array_equal(ids, pi[r].numpy())
+        lst = _emulate_fold(scores[r], excluded[r], k, order)[:k]
+        np.testing.assert_array_equal(np.array([v for v, _ in lst], np.float32), pv[r])
+        np.testing.assert_array_equal(np.array([j for _, j in lst]), pi[r])
+
+
+@pytest.mark.parametrize("kind,k", _fold_params())
+def test_split_lists_merge_to_plain(kind, k):
+    """The catalog cut into splits of whole 128-item tiles (the last one
+    short), each folded in its own order, then the merge pass over the
+    per-split lists: the plain version's values and ids."""
+    scores, excluded, pv, pi = _fold_case(kind, k)
+    rng = np.random.default_rng(44 + k)
+    bounds = [0, 256, 512, 700]
+    for r in range(3):
+        parts = []
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            order = rng.permutation(hi - lo)
+            parts.append(_emulate_fold(scores[r, lo:hi], excluded[r, lo:hi], k, order,
+                                       ids=np.arange(lo, hi)))
+        lst = _emulate_merge(parts, k)
+        np.testing.assert_array_equal(np.array([v for v, _ in lst], np.float32), pv[r])
+        np.testing.assert_array_equal(np.array([j for _, j in lst]), pi[r])
+
+
+def _order_key(e):
+    return (-e[0], e[1])
+
+
+def _emulate_int8_split(scores, excluded, ids, k, rng):
+    """Kernel C's candidate path (csrc/topk.cu) for one user over one split:
+    runs of 128 items, item tx + 16·j of a run held by lane tx; the exact
+    test against the k-th entry and the mask; for k ≤ 16 the run bound where
+    a lane holds more than 2 candidates (or, at random, where the warp's
+    other user asks for it); then ``offer_user``: every candidate offered in
+    no fixed order, a full buffer merged at once, the threshold re-read after
+    a merge and raised to the run bound."""
+    lst, buf, thr = [(ttp.NEG_INF, 0)] * _list_len(k), [], (ttp.NEG_INF, 0)
+    for r0 in range(0, len(scores), 128):
+        lanes = [[p for p in range(r0 + tx, min(r0 + 128, len(scores)), 16)] for tx in range(16)]
+        keep = [[(scores[p], int(ids[p])) for p in lane
+                 if not excluded[p] and _better((scores[p], int(ids[p])), thr)] for lane in lanes]
+        bound = None
+        if k <= 16 and (any(len(c) > 2 for c in keep) or rng.random() < 0.3):
+            bests = sorted((min(c, key=_order_key) if c else (ttp.NEG_INF, _PAD_ID)
+                            for c in keep), key=_order_key)
+            bound = bests[k - 1]
+            keep = [[e for e in c if not _better(bound, e)] for c in keep]
+        cands = [e for c in keep for e in c]
+        rng.shuffle(cands)
+        merged = False
+        for cand in cands:
+            if len(buf) == 64:
+                lst, buf, merged = _merge_list(lst, buf), [], True
+            buf.append(cand)
+        if merged:
+            thr = lst[k - 1]
+        if bound is not None and _better(bound, thr):
+            thr = bound
+    if buf:
+        lst = _merge_list(lst, buf)
+    return lst
+
+
+@pytest.mark.parametrize("k", [1, 5, 12, 16, 33])
+def test_int8_candidate_path_matches_plain(k):
+    """Kernel C's own candidate path around the shared fold, emulated in
+    Python over four splits and the merge pass, on exactly tied int8 scores
+    with exclusions: each split's k best, then the plain version's values
+    and ids."""
+    scores, excluded, pv, pi = _fold_case("int8", k)
+    rng = np.random.default_rng(45 + k)
+    bounds = [0, 128, 256, 512, 700]   # splits of one run, two runs, a short last run
+    for r in range(3):
+        parts = []
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            part = _emulate_int8_split(scores[r, lo:hi], excluded[r, lo:hi], np.arange(lo, hi), k, rng)
+            sv, si = ttp.topk_fold_plain(torch.from_numpy(
+                np.where(excluded[r:r + 1, lo:hi], ttp.NEG_INF, scores[r:r + 1, lo:hi])), k)
+            split_ids = np.where(sv[0].numpy() > ttp.NEG_INF, si[0].numpy() + lo, 0)
+            assert part[:k] == list(zip(sv[0].tolist(), split_ids.tolist()))   # each split's k best
+            parts.append(part)
+        lst = _emulate_merge(parts, k)
+        np.testing.assert_array_equal(np.array([v for v, _ in lst], np.float32), pv[r])
+        np.testing.assert_array_equal(np.array([j for _, j in lst]), pi[r])
+
+
+def test_int8_wrapper_refuses_bad_k_and_other_devices():
+    """Kernel C's wrapper refuses a k outside [1, MAX_K] and a device that is
+    neither CPU nor CUDA."""
+    u, q, s = torch.zeros((3, 20)), torch.zeros((40, 20), dtype=torch.int8), torch.ones((1, 40))
+    for k in (0, ttp.MAX_K + 1):
+        with pytest.raises(ValueError, match="k must be"):
+            ttp.streaming_mips_topk_int8(u, q, s, k)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ttp.streaming_mips_topk_int8(u.to("meta"), q.to("meta"), s.to("meta"), 5)
