@@ -33,13 +33,30 @@ on one NVIDIA H100: ``python3 chip_smoke.py`` from the repository root.
    forward is held against the plain forward in the same mode.
 4. The main path once more under ``torch.profiler``: kernel time by name
    and the card's idle share of the host wall time.
-5. Prints a ``{"kernels": [...]}`` JSON line, the card's line, and as the
+5. Training at the same full width, on ``create_lightgcn_data``'s 80/10/10
+   split, at ``bench_hm.make_cfg``'s settings (D=32, K=4, batch 32,768, lr
+   1e-2, λ 1e-6, ``lr_decay_every`` 14, ``eval_user_cap`` 20,000,
+   ``select_best_val``, ``propagation="auto"``: kernel A's bf16-gather
+   mode): one batch's gradients of ``bpr_loss`` w.r.t. both E⁰ tables
+   through the self-adjoint loop over kernel A, held against the same loop
+   over kernel A's plain version in both modes and, in the f32 mode,
+   against plain autograd through ``ops/spmm.py``; a timed
+   ``make_train_step`` step (kernel A's launches a step from the counters,
+   its phases, a ``torch.profiler`` split by kernel name, the card's idle
+   share, peak memory); then ``train()`` end to end for a few tens of steps
+   with evals, checkpoints and best-val selection, run twice with one seed,
+   and resumed from its newest checkpoint. Kernel A is also held against
+   its plain version at D=30 and D=160 (padded columns, column blocks), and
+   kernel B at D=30 (padded rows) and D=160 (column-chunked tiles).
+6. Prints a ``{"kernels": [...]}`` JSON line, the card's line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero; the script needs a CUDA card and the checkout.
 """
 import dataclasses
 import json
+import os
+import shutil
 import warnings
 import subprocess
 import sys
@@ -54,6 +71,13 @@ POPULARITY_ALPHA = 0.8
 SERVE_USERS = 1_000
 BIG_B, BIG_I = 512, 270_336   # B·I·4 > 512 MiB and I % 512 == 0: streams
 WIDE_D = 100   # kernel A's check at a width that leaves lanes idle
+ODD_WIDTHS = (30, 160)   # widths the wrappers pad (30) or cut into column blocks (160)
+# training: bench_hm.make_cfg's settings; a few tens of steps
+TRAIN_CFG = dict(hidden_layer_size=32, num_iterations=4, batch_size=32_768, learning_rate=1e-2,
+                 Lambda=1e-6, lr_decay_every=14, eval_user_cap=20_000, select_best_val=True,
+                 propagation="auto")
+TRAIN_STEPS, TRAIN_EVAL_EVERY, TRAIN_CKPT_EVERY, RESUME_STEPS = 30, 10, 10, 10
+TRAIN_DIR = os.path.join("_chip", "smoke_train")   # checkpoints, removed at the end
 WINDOW_SHARES = (0, 0.25, 0.5, 0.75)   # kernel A's window sizes tried, as shares of L2
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at a 700 W limit)
@@ -63,6 +87,11 @@ PEAK_INT8_S = 1979e12
 
 TOL_SEGSUM = (1e-5, 1e-5)   # (atol, rtol): f32 sums in another order
 TOL_TOPK_F32 = 1e-6         # abs, on scores ~1e-2: f32 dot in another order
+# gradients of one batch, abs, as a share of the reference's largest entry:
+# f32 sums in another order through 2·K hops; in the bf16-gather mode a
+# bf16 rounding of a value whose f32 bits differ may flip (2^-8 of a message)
+TOL_GRAD_F32 = 1e-5
+TOL_GRAD_BF16 = 2.0 ** -7
 # int8 (kernel C) must be bitwise equal: integer dots, the same two f32 roundings
 
 
@@ -216,6 +245,249 @@ def trace(torch, fn):
     return out
 
 
+class PlainCalls:
+    """Counts calls of kernel A's plain version while it is installed, so a
+    run can show that a path never fell back on it."""
+
+    def __init__(self, sp):
+        self.sp, self.calls, self.real = sp, 0, sp.pallas_segment_sum_plain
+
+    def __enter__(self):
+        def counted(*a, **k):
+            self.calls += 1
+            return self.real(*a, **k)
+        self.sp.pallas_segment_sum_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.sp.pallas_segment_sum_plain = self.real
+
+
+def kernel_categories(top):
+    """Kernel time of a trace by what it does, from the kernel names."""
+    groups = {}
+    for name, v in top.items():
+        n = name.lower()
+        kind = ("kernel A" if "segsum" in n else
+                "Adam (foreach)" if "multi_tensor_apply" in n else
+                "sampling draws" if ("distribution" in n or "philox" in n or "random" in n) else
+                "gathers and scatters" if ("index" in n or "gather" in n or "scatter" in n) else
+                "reductions" if "reduce" in n else "elementwise and other")
+        g = groups.setdefault(kind, dict(ms=0.0, calls=0))
+        g["ms"] += v["ms"]
+        g["calls"] += v["calls"]
+    return groups
+
+
+def train_phase(torch, data, dev, record):
+    """Phase 5: gradients through kernel A against its plain version, a
+    timed train step, and ``train()`` end to end with a resume."""
+    from laplace_gnn_recommendation_tpu_torch import _build
+    from laplace_gnn_recommendation_tpu_torch.configs import LightGCNConfig
+    from laplace_gnn_recommendation_tpu_torch.models.lightgcn import (
+        LightGCNParams, bpr_loss, init_lightgcn, lightgcn_forward)
+    from laplace_gnn_recommendation_tpu_torch.ops import spmm_pallas as sp
+    from laplace_gnn_recommendation_tpu_torch.ops.multiscale import self_adjoint_multiscale
+    from laplace_gnn_recommendation_tpu_torch.ops.sampling import sample_bpr_batch
+    from laplace_gnn_recommendation_tpu_torch.ops.spmm import lightgcn_propagate
+    from laplace_gnn_recommendation_tpu_torch.train.lightgcn_pipeline import (
+        _user_row_ptr, make_train_step, select_propagation, train)
+
+    cfg = LightGCNConfig(**TRAIN_CFG)
+    graph, k_iter = data.train_graph, cfg.num_iterations
+    prop = select_propagation(cfg, graph)
+    if not (isinstance(prop, sp.PallasGraph) and prop.gather_bf16):
+        fail("training: propagation='auto' did not take kernel A's bf16-gather mode")
+    modes = {"bf16": prop, "f32": sp.PallasGraph.from_graph(graph, width=cfg.hidden_layer_size)}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params = init_lightgcn(NUM_USERS, NUM_ITEMS, cfg.hidden_layer_size, generator=gen, device=dev)
+    row_ptr = _user_row_ptr(graph)
+    max_deg = int(graph.user_deg.max())
+    u, pos, neg = (x.long() for x in sample_bpr_batch(
+        gen, graph.edge_user, graph.edge_item, graph.num_edges, cfg.batch_size, row_ptr,
+        graph.edge_item, NUM_ITEMS, max_deg))
+    out = {}
+
+    # ---- 5a. one batch's gradients: kernel A against its plain version ----
+    def plain_propagate(pg, eu, ei):
+        return (sp.pallas_segment_sum_plain(pg.to_user, ei, pg.gather_bf16),
+                sp.pallas_segment_sum_plain(pg.to_item, eu, pg.gather_bf16))
+
+    def grads(loop):
+        e0 = LightGCNParams(params.user_emb.detach().clone().requires_grad_(),
+                            params.item_emb.detach().clone().requires_grad_())
+        uf, itf = loop(e0.user_emb, e0.item_emb)
+        loss = bpr_loss(uf[u], e0.user_emb[u], itf[pos], e0.item_emb[pos], itf[neg],
+                        e0.item_emb[neg], cfg.Lambda, cfg.bpr_variant)
+        return torch.autograd.grad(loss, (e0.user_emb, e0.item_emb))
+
+    in_batch_u = torch.zeros(NUM_USERS, dtype=torch.bool, device=dev)
+    in_batch_u[u] = True
+    in_batch_i = torch.zeros(NUM_ITEMS, dtype=torch.bool, device=dev)
+    in_batch_i[pos] = True
+    in_batch_i[neg] = True
+    grad_err = {}
+
+    def hold(name, got, ref, tol):
+        for table, g, r, in_batch in zip(("user", "item"), got, ref, (in_batch_u, in_batch_i)):
+            scale = float(r.abs().max())
+            err = float((g - r).abs().max())
+            grad_err[f"{name}_{table}"] = dict(max_abs_err=err, ref_max=scale, tol=tol * scale)
+            if not (scale > 0 and err <= tol * scale):
+                fail(f"training gradients {name} {table}: max abs err {err} > {tol} x {scale}")
+            # rows outside the batch get a gradient only through the diffusion
+            reached = int(((g != 0).any(1) & ~in_batch).sum())
+            ref_reached = int(((r != 0).any(1) & ~in_batch).sum())
+            grad_err[f"{name}_{table}"].update(diffusion_rows=reached, ref_diffusion_rows=ref_reached)
+            if ref_reached == 0 or reached < 0.99 * ref_reached:
+                fail(f"training gradients {name} {table}: {reached} rows outside the batch "
+                     f"reached, the reference {ref_reached}")
+
+    for mode, pg in modes.items():
+        _build.launches.clear()
+        with PlainCalls(sp) as plain_calls:
+            g_kernel = grads(lambda a, b: self_adjoint_multiscale(
+                sp.propagate_pallas, pg, a, b, k_iter))
+            torch.cuda.synchronize()
+        if _build.launches["segsum"] != 4 * k_iter or plain_calls.calls:
+            fail(f"training gradients {mode}: {_build.launches['segsum']} kernel A launches, "
+                 f"{plain_calls.calls} plain calls (expected {4 * k_iter} and 0)")
+        g_plain = grads(lambda a, b: self_adjoint_multiscale(plain_propagate, pg, a, b, k_iter))
+        hold(f"{mode}_vs_plain_function", g_kernel, g_plain,
+             TOL_GRAD_BF16 if pg.gather_bf16 else TOL_GRAD_F32)
+        if mode == "f32":
+            # plain autograd through ops/spmm.py: the self-adjoint identity,
+            # checked independently of the Function
+            g_auto = grads(lambda a, b: lightgcn_propagate(graph, a, b, k_iter))
+            hold("f32_vs_plain_autograd", g_kernel, g_auto, TOL_GRAD_F32)
+            del g_auto
+        del g_kernel, g_plain
+    log("training gradients:", json.dumps(grad_err))
+    out["grad_check"] = grad_err
+    del modes
+
+    # ---- 5b. one timed train step (make_train_step) -------------------------
+    step, tx = make_train_step(cfg, graph, max_deg, prop_graph=prop, device=dev)
+    tparams = init_lightgcn(NUM_USERS, NUM_ITEMS, cfg.hidden_layer_size, generator=gen, device=dev)
+    state = [tx.init(tparams)]
+
+    def one_step():
+        _, state[0], loss = step(tparams, state[0], gen)
+        return loss
+
+    one_step()
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    with PlainCalls(sp) as plain_calls:
+        loss0 = one_step()
+        torch.cuda.synchronize()
+    step_launches = _build.launches["segsum"]
+    if step_launches != 4 * k_iter or plain_calls.calls:
+        fail(f"train step: {step_launches} kernel A launches and {plain_calls.calls} plain "
+             f"calls (expected {4 * k_iter} and 0)")
+    if not bool(torch.isfinite(loss0)):
+        fail("train step: non-finite loss")
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    one_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_dev_ms, step_host_ms = device_ms(torch, one_step, 10)
+    step_call_ms = time_ms(torch, one_step, 10)
+    # the step's phases, each issued alone on the same inputs
+    def sample():
+        return sample_bpr_batch(gen, graph.edge_user, graph.edge_item, graph.num_edges,
+                                cfg.batch_size, row_ptr, graph.edge_item, NUM_ITEMS, max_deg)
+
+    def forward_loss():
+        e0 = LightGCNParams(tparams.user_emb.detach().requires_grad_(),
+                            tparams.item_emb.detach().requires_grad_())
+        uf, u0, itf, it0 = lightgcn_forward(e0, prop, k_iter)
+        return e0, bpr_loss(uf[u], u0[u], itf[pos], it0[pos], itf[neg], it0[neg],
+                            cfg.Lambda, cfg.bpr_variant)
+
+    def forward_backward():
+        e0, loss = forward_loss()
+        return torch.autograd.grad(loss, (e0.user_emb, e0.item_emb))
+
+    g_fixed = LightGCNParams(*forward_backward())
+    adam_state = [tx.init(tparams)]
+
+    def adam():
+        adam_state[0] = tx.update_(g_fixed, adam_state[0], tparams)
+
+    phases = {name: device_ms(torch, fn, 10)[0] for name, fn in (
+        ("sampling", sample), ("forward_and_loss", lambda: forward_loss()[1]),
+        ("forward_and_backward", forward_backward), ("adam", adam))}
+    phases["backward"] = phases["forward_and_backward"] - phases["forward_and_loss"]
+    with torch.no_grad():
+        phases["kernel_a_forward_only"] = device_ms(
+            torch, lambda: lightgcn_forward(tparams, prop, k_iter), 10)[0]
+    del g_fixed, adam_state
+    tr = trace(torch, one_step)
+    out["step"] = dict(
+        device_ms=step_dev_ms, call_ms=step_call_ms, host_ms=step_host_ms,
+        kernel_a_launches=step_launches, plain_calls=plain_calls.calls,
+        peak_allocated_bytes=peak, allocated_before_bytes=base_mem,
+        phases_device_ms=phases, trace=tr, trace_by_kind=kernel_categories(tr["top"]),
+        batch=cfg.batch_size,
+    )
+    log("train step:", json.dumps(out["step"]))
+    del step, tparams, state
+
+    # ---- 5c. train() end to end, twice with one seed, then a resume ---------
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    run_cfg = dataclasses.replace(cfg, epochs=TRAIN_STEPS, eval_every=TRAIN_EVAL_EVERY,
+                                  checkpoint_every=TRAIN_CKPT_EVERY, artifact_dir=TRAIN_DIR,
+                                  seed=42)
+    logs = []
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    with PlainCalls(sp) as plain_calls:
+        s1 = train(run_cfg, data, export=False, log_fn=lambda m: logs.append(str(m)), device=dev)
+        torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    run_launches = _build.launches["segsum"]
+    for m in logs:
+        log("  train:", m)
+    s2 = train(run_cfg, data, export=False, log_fn=lambda *_: None, device=dev)
+    resume_logs = []
+    s3 = train(dataclasses.replace(run_cfg, epochs=TRAIN_STEPS + RESUME_STEPS, resume=True),
+               data, export=False, log_fn=lambda m: resume_logs.append(str(m)), device=dev)
+    for m in resume_logs:
+        log("  resume:", m)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    curve = s1.loss_curve
+    floor = 12 / NUM_ITEMS
+    out["train"] = dict(
+        steps=TRAIN_STEPS, wall_s=t_run, kernel_a_launches=run_launches,
+        plain_calls=plain_calls.calls, loss_curve=curve,
+        val_recall_at_12=s1.recall_val, val_precision_at_12=s1.precision_val,
+        test_recall_at_12=s1.recall_test, test_precision_at_12=s1.precision_test,
+        random_recall_floor=floor, same_seed_equal=s1.loss_curve == s2.loss_curve,
+        resumed_steps=len(s3.loss_curve), resumed_loss_curve=s3.loss_curve,
+        resumed_test_recall_at_12=s3.recall_test,
+    )
+    log("train:", json.dumps(out["train"]))
+    if not np.isfinite(curve).all() or not np.isfinite(s3.loss_curve).all():
+        fail("train(): non-finite losses")
+    if not np.mean(curve[-5:]) < curve[0]:
+        fail(f"train(): mean of the last 5 losses {np.mean(curve[-5:])} not below the first {curve[0]}")
+    if not s1.recall_test > floor:
+        fail(f"train(): test recall@12 {s1.recall_test} not above the random floor {floor}")
+    if s1.loss_curve != s2.loss_curve or s1.recall_test != s2.recall_test:
+        fail("train(): two runs of one seed differ")
+    if plain_calls.calls or run_launches <= 0:
+        fail(f"train(): {run_launches} kernel A launches, {plain_calls.calls} plain calls")
+    start = TRAIN_STEPS - TRAIN_STEPS % TRAIN_CKPT_EVERY
+    start = start if start < TRAIN_STEPS else start - TRAIN_CKPT_EVERY
+    if not any(f"Resuming from checkpoint (iteration {start + 1})" in m for m in resume_logs) \
+            or len(s3.loss_curve) != TRAIN_STEPS + RESUME_STEPS - start - 1:
+        fail(f"train(): the resume did not continue from the checkpoint of iteration {start}")
+    record["training"] = out
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -225,9 +497,10 @@ def main() -> int:
 
     from laplace_gnn_recommendation_tpu_torch import _build
     from laplace_gnn_recommendation_tpu_torch.configs import LightGCNConfig
-    from laplace_gnn_recommendation_tpu_torch.data.graph import BipartiteGraph
-    from laplace_gnn_recommendation_tpu_torch.data.lightgcn_data import padded_user_items
-    from laplace_gnn_recommendation_tpu_torch.data.splitting import random_edge_split
+    from laplace_gnn_recommendation_tpu_torch.data.lightgcn_data import (
+        create_lightgcn_data,
+        padded_user_items,
+    )
     from laplace_gnn_recommendation_tpu_torch.data.synthetic import random_bipartite_edges
     from laplace_gnn_recommendation_tpu_torch.models.lightgcn import (
         init_lightgcn,
@@ -266,11 +539,12 @@ def main() -> int:
     # ---- data (host) ------------------------------------------------------
     t0 = time.perf_counter()
     eu, ei = random_bipartite_edges(0, NUM_USERS, NUM_ITEMS, AVG_DEGREE, POPULARITY_ALPHA)
-    tr, _, _ = random_edge_split(len(eu), seed=1)
-    train_u, train_i = eu[tr], ei[tr]
     t_edges = time.perf_counter() - t0
     t0 = time.perf_counter()
-    graph = BipartiteGraph.from_edges(train_u, train_i, NUM_USERS, NUM_ITEMS, device=dev)
+    # the 80/10/10 split (seed 1): one graph per split on the card, eval sets
+    data = create_lightgcn_data(eu, ei, NUM_USERS, NUM_ITEMS, device=dev)
+    graph = data.train_graph
+    train_u, train_i = data.train_edges
     t_graph = time.perf_counter() - t0
     cfg = LightGCNConfig()   # hidden_layer_size=32, num_iterations=4
     cfg.propagation = "auto"
@@ -331,6 +605,27 @@ def main() -> int:
                 fail(f"segsum {mode} D={WIDE_D} {dname}: beyond atol {atol} + rtol {rtol}")
             del table, out, ref
     log(f"segsum D={WIDE_D}: max abs err {a_err_wide}")
+    # widths the wrapper pads (30) or cuts into column blocks (160), both
+    # modes and directions, on the val split's plans (H&M node counts, a
+    # tenth of the edges, so the plain version's [E, D] messages stay small)
+    a_err_odd = {}
+    for bf16 in (False, True):
+        vpg = sp.PallasGraph.from_graph(data.val_graph, width=cfg.hidden_layer_size,
+                                        gather_bf16=bf16)
+        for dd in ODD_WIDTHS:
+            for dname, rows in (("to_user", NUM_ITEMS), ("to_item", NUM_USERS)):
+                table = torch.randn((rows, dd), generator=gen_w, device=dev) * 0.1
+                plan = getattr(vpg, dname)
+                out = sp.pallas_segment_sum(plan, table, bf16)
+                ref = sp.pallas_segment_sum_plain(plan, table, bf16)
+                key = f"{'bf16' if bf16 else 'f32'}_D{dd}_{dname}"
+                a_err_odd[key] = float((out - ref).abs().max())
+                if out.shape != ref.shape or \
+                        float(((out - ref).abs() - (atol + rtol * ref.abs())).max()) > 0:
+                    fail(f"segsum {key}: beyond atol {atol} + rtol {rtol}")
+                del table, out, ref
+        del vpg
+    log("segsum odd widths max abs err:", json.dumps(a_err_odd))
     d32 = cfg.hidden_layer_size
     shifted = params.item_emb.new_zeros(NUM_ITEMS * d32 + 1)[1:].view(NUM_ITEMS, d32)
     try:
@@ -496,6 +791,21 @@ def main() -> int:
                 fail(f"topk_f32 on tied scores (k={k_tie}, masked={m is not None}): "
                      f"not equal to the plain version")
     log("topk_f32 tied scores: values and ids equal to the plain version")
+    # widths the wrapper zero-pads (30) and rows too wide for two staged
+    # tiles, which the kernel stages in column chunks (160; at k=256 too)
+    b_err_odd = {}
+    for dd in ODD_WIDTHS:
+        uo = torch.randn((256, dd), generator=gen_t, device=dev) * 0.1
+        io = torch.randn((NUM_ITEMS, dd), generator=gen_t, device=dev) * 0.1
+        for k_o, m in ((12, None), (12, mask256), (256, mask256)):
+            vo, ido = tp.streaming_mips_topk(uo, io, k_o, m)
+            pvo, _ = tp.streaming_mips_topk_plain(uo, io, k_o, m)
+            torch.cuda.synchronize()
+            name = f"D={dd} k={k_o} masked={m is not None}"
+            b_err_odd[name] = check_topk_ids(torch, f"topk_f32 {name}", uo, io, vo, ido, pvo, m,
+                                             TOL_TOPK_F32)
+        del uo, io
+    log("topk_f32 odd widths max abs err:", json.dumps(b_err_odd))
 
     # kernel C where it can differ from its plain version; each case
     # bitwise equal to it
@@ -653,8 +963,22 @@ def main() -> int:
         auto_mips_topk(out[0][:BIG_B], big_items, 12, bex_t, bexc_t)
 
     record["trace"] = trace(torch, main_path_again)
+    del qserver, fserver, main_path_again
+
+    # ---- 5. training --------------------------------------------------------
+    training = train_phase(torch, data, dev, record)
 
     kern["segsum"]["launches"] = launches["segsum"]
+    kern["segsum"].update(
+        train_step_launches=training["step"]["kernel_a_launches"],
+        train_run_launches=training["train"]["kernel_a_launches"],
+        train_run_steps=TRAIN_STEPS,
+        train_step_ms=training["step"]["device_ms"],
+        train_step_call_ms=training["step"]["call_ms"],
+        train_grad_max_abs_err={k: v["max_abs_err"] for k, v in training["grad_check"].items()},
+        train_grad_tol=f"{TOL_GRAD_F32} (f32) / {TOL_GRAD_BF16} (bf16) of the largest entry",
+        max_abs_err_odd_widths=a_err_odd,
+    )
 
     def timed(row, prefix=""):
         """A timed row's numbers for the ``kernels`` line: ``ms`` and
@@ -671,6 +995,7 @@ def main() -> int:
         source="laplace_gnn_recommendation_tpu_torch/csrc/topk_f32.cu",
         replaces="laplace_gnn_recommendation_tpu/ops/topk_pallas.py:69 (_kernel), :93 (_kernel_masked)",
         launches=launches["topk_f32"], max_abs_err=b_main["max_abs_err"], **timed(b_main),
+        max_abs_err_odd_widths=b_err_odd,
         per=f"B={BIG_B} I={BIG_I} k=12 masked",
         **timed(b_k256, "k256_"), k256_per="B=256 I=104547 k=256 masked",
     )

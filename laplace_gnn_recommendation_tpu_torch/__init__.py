@@ -15,7 +15,10 @@ asked for the card on a host without one (:func:`resolve_device`).
 
 Ported so far: LightGCN inference and retrieval serving — graph build,
 K-hop propagation (segment-sum kernel), top-k retrieval (f32 and int8
-streaming kernels), eval metrics, artifact export and ``RetrievalServer``.
+streaming kernels), eval metrics, artifact export and ``RetrievalServer``
+— and LightGCN training: BPR sampling on the device, ``bpr_loss``, the
+self-adjoint backward through the segment-sum kernel, Adam under the
+staircase decay, checkpoint/resume and the ``train`` loop.
 """
 from __future__ import annotations
 

@@ -28,7 +28,11 @@
 //   loads. Rows are padded by 4 floats, so the 8 rows a quarter-warp reads
 //   fall in distinct banks. Where the mask rows are 16-byte aligned, the
 //   mask tile streams in beside the item tile the same way; otherwise it is
-//   read straight from device memory.
+//   read straight from device memory. Where two tiles of whole rows do not
+//   fit the block's shared memory (wide rows: D > 124 at k = 12), a tile
+//   is staged in column chunks of 64, 32, ... floats (`chunk_cols`), one
+//   chunk a pipeline step, and the 4×8 sums carry over its chunks; the
+//   users are always staged whole.
 // * Fold (topk_fold.cuh, shared with kernel C): a half-warp holds all
 //   scores of 4 users, so a warp owns 8 users' lists outright and folds
 //   without block barriers. A score that beats its
@@ -51,25 +55,45 @@ namespace {
 
 constexpr int kTile = 128;    // items per staged tile: 8 per thread
 constexpr int kMinSplit = 4 * kTile;
+constexpr size_t kMaxSmem = 232448;   // shared memory a block may use on sm_90
 
-size_t partial_smem_bytes(int d, int k) {
-  const int stride = d + 4;
-  return sizeof(float) * (static_cast<size_t>(kUsers + 2 * kTile) * stride) +
+// Bytes of a block at width d whose item tiles are staged dc columns at a
+// time (the users are staged whole).
+size_t smem_bytes(int d, int dc, int k) {
+  return sizeof(float) * (static_cast<size_t>(kUsers) * (d + 4) +
+                          static_cast<size_t>(2 * kTile) * (dc + 4)) +
          (sizeof(float) + sizeof(int32_t)) * static_cast<size_t>(kUsers) * (list_len(k) + kBuf) +
          sizeof(int32_t) * kUsers + 2 * kUsers * kTile;   // buffer counts, mask tiles
 }
 
+// Columns of an item tile staged at once: the whole row where the block
+// fits, else the widest of 64, 32, ..., 4 that fits (wide rows).
+int chunk_cols(int d, int k) {
+  if (smem_bytes(d, d, k) <= kMaxSmem) return d;
+  int dc = 64;
+  while (dc > 4 && smem_bytes(d, dc, k) > kMaxSmem) dc /= 2;
+  return dc < d ? dc : d;
+}
+
+size_t partial_smem_bytes(int d, int k) { return smem_bytes(d, chunk_cols(d, k), k); }
+
+// kChunked: item tiles staged in column chunks of dc floats (wide rows);
+// the whole-row instantiation folds every chunk index to a constant.
+template <bool kChunked>
 __global__ void __launch_bounds__(kThreads, 2) topk_f32_partial_kernel(
     const float* __restrict__ users, const float* __restrict__ items,
-    const int8_t* __restrict__ mask, int64_t b_total, int64_t i_total, int d, int k,
+    const int8_t* __restrict__ mask, int64_t b_total, int64_t i_total, int d, int dc, int k,
     int64_t split_len, float* __restrict__ part_v, int32_t* __restrict__ part_i) {
   extern __shared__ float4 smem4[];
   const int K = list_len(k);
   const int L = K + kBuf;
-  const int stride = d + 4, d4 = d / 4;
+  const int stride = d + 4, d4 = d / 4;            // staged users: whole rows
+  const int dcw = kChunked ? dc : d;               // staged items: dcw columns of a row
+  const int tstride = dcw + 4;
+  const int nchunks = kChunked ? (d + dcw - 1) / dcw : 1;
   float* us = reinterpret_cast<float*>(smem4);
   float* ts = us + kUsers * stride;
-  float* lv = ts + 2 * kTile * stride;
+  float* lv = ts + 2 * kTile * tstride;
   int32_t* li = reinterpret_cast<int32_t*>(lv + kUsers * L);
   int* cnt = li + kUsers * L;                               // buffer entries per user
   int8_t* ms = reinterpret_cast<int8_t*>(cnt + kUsers);     // two mask tiles [kUsers][kTile]
@@ -85,15 +109,21 @@ __global__ void __launch_bounds__(kThreads, 2) topk_f32_partial_kernel(
   const bool mask_async = mask != nullptr && i_total % 16 == 0 &&
                           reinterpret_cast<uintptr_t>(mask) % 16 == 0;
 
-  auto stage = [&](int t) {
+  // step st stages columns [dc·ch, dc·ch + cw) of tile t = st / nchunks,
+  // ch = st % nchunks, into item buffer st & 1; the tile's mask rows go in
+  // with its first chunk, into mask buffer t & 1
+  auto stage = [&](int st) {
+    const int t = kChunked ? st / nchunks : st, ch = kChunked ? st % nchunks : 0;
+    const int col0 = dcw * ch, cw4 = kChunked ? (d - col0 < dcw ? d - col0 : dcw) / 4 : d4;
     const int64_t t0 = lo + static_cast<int64_t>(t) * kTile;
-    float* dst = ts + (t & 1) * kTile * stride;
-    for (int idx = threadIdx.x; idx < kTile * d4; idx += kThreads) {
-      const int r = idx / d4, c = idx % d4;
+    float* dst = ts + (st & 1) * kTile * tstride;
+    for (int idx = threadIdx.x; idx < kTile * cw4; idx += kThreads) {
+      const int r = idx / cw4, c = idx % cw4;
       const bool ok = t0 + r < hi;
-      cp_async16(dst + r * stride + 4 * c, ok ? items + (t0 + r) * d + 4 * c : items, ok ? 16 : 0);
+      cp_async16(dst + r * tstride + 4 * c, ok ? items + (t0 + r) * d + col0 + 4 * c : items,
+                 ok ? 16 : 0);
     }
-    if (mask_async) {
+    if (mask_async && ch == 0) {
       int8_t* mdst = ms + (t & 1) * kUsers * kTile;
       for (int idx = threadIdx.x; idx < kUsers * kTile / 16; idx += kThreads) {
         const int u = idx / (kTile / 16), c = idx % (kTile / 16);
@@ -127,45 +157,52 @@ __global__ void __launch_bounds__(kThreads, 2) topk_f32_partial_kernel(
     user_ok[i] = b0 + 4 * ty + i < b_total;
   }
   const float* urow = us + 4 * ty * stride;
+  const int nsteps = ntiles * nchunks;
+  uint32_t ok_bits = 0;
+  float acc[4][8];
 
-  for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) {
-      stage(t + 1);
+  for (int st = 0; st < nsteps; ++st) {
+    if (st + 1 < nsteps) {
+      stage(st + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
+    const int t = kChunked ? st / nchunks : st, ch = kChunked ? st % nchunks : 0;
     const int64_t t0 = lo + static_cast<int64_t>(t) * kTile;
-    const int n = hi - t0 < kTile ? static_cast<int>(hi - t0) : kTile;
-    // eligibility bits (bit 8·i + j): a real item, a real user, not excluded
-    uint32_t ok_bits = 0;
-    const int8_t* mtile = ms + (t & 1) * kUsers * kTile + 4 * ty * kTile;
+    if (ch == 0) {
+      const int n = hi - t0 < kTile ? static_cast<int>(hi - t0) : kTile;
+      // eligibility bits (bit 8·i + j): a real item, a real user, not excluded
+      ok_bits = 0;
+      const int8_t* mtile = ms + (t & 1) * kUsers * kTile + 4 * ty * kTile;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int8_t* mrow = mask_async ? mtile + i * kTile
-          : mask != nullptr && user_ok[i] ? mask + (b0 + 4 * ty + i) * i_total + t0 : nullptr;
+      for (int i = 0; i < 4; ++i) {
+        const int8_t* mrow = mask_async ? mtile + i * kTile
+            : mask != nullptr && user_ok[i] ? mask + (b0 + 4 * ty + i) * i_total + t0 : nullptr;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int item = tx + 16 * j;
-        const bool ok = user_ok[i] && item < n && (mrow == nullptr || mrow[item] == 0);
-        ok_bits |= static_cast<uint32_t>(ok) << (8 * i + j);
+        for (int j = 0; j < 8; ++j) {
+          const int item = tx + 16 * j;
+          const bool ok = user_ok[i] && item < n && (mrow == nullptr || mrow[item] == 0);
+          ok_bits |= static_cast<uint32_t>(ok) << (8 * i + j);
+        }
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
     }
-    const float* tb = ts + (t & 1) * kTile * stride + tx * stride;
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int c = 0; c < d4; ++c) {
+    const float* tb = ts + (st & 1) * kTile * tstride + tx * tstride;
+    const int c0 = dcw * ch / 4;
+    const int cw4 = kChunked ? (d - dcw * ch < dcw ? d - dcw * ch : dcw) / 4 : d4;
+    for (int c = 0; c < cw4; ++c) {
       float4 x[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        x[j] = *reinterpret_cast<const float4*>(tb + 16 * j * stride + 4 * c);
+        x[j] = *reinterpret_cast<const float4*>(tb + 16 * j * tstride + 4 * c);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float4 u = *reinterpret_cast<const float4*>(urow + i * stride + 4 * c);
+        const float4 u = *reinterpret_cast<const float4*>(urow + i * stride + 4 * (c0 + c));
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           acc[i][j] = fmaf(u.x, x[j].x, acc[i][j]);
@@ -175,19 +212,21 @@ __global__ void __launch_bounds__(kThreads, 2) topk_f32_partial_kernel(
         }
       }
     }
-    // fold: each lane offers its candidates one at a time (topk_fold.cuh)
+    if (ch == nchunks - 1) {
+      // fold: each lane offers its candidates one at a time (topk_fold.cuh)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t pend = 0;
+      for (int i = 0; i < 4; ++i) {
+        uint32_t pend = 0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int32_t id = static_cast<int32_t>(t0 + tx + 16 * j);
-        const bool c = ((ok_bits >> (8 * i + j)) & 1u) && better(acc[i][j], id, thr_v[i], thr_i[i]);
-        pend |= static_cast<uint32_t>(c) << j;
+        for (int j = 0; j < 8; ++j) {
+          const int32_t id = static_cast<int32_t>(t0 + tx + 16 * j);
+          const bool c = ((ok_bits >> (8 * i + j)) & 1u) && better(acc[i][j], id, thr_v[i], thr_i[i]);
+          pend |= static_cast<uint32_t>(c) << j;
+        }
+        offer_user(lv, li, cnt, K, L, k, i, warp, lane, tx, t0, acc[i], pend, thr_v[i], thr_i[i]);
       }
-      offer_user(lv, li, cnt, K, L, k, i, warp, lane, tx, t0, acc[i], pend, thr_v[i], thr_i[i]);
     }
-    __syncthreads();  // this tile's buffers are staged again two tiles on
+    __syncthreads();  // this step's buffers are staged again two steps on
   }
   write_lists(lv, li, cnt, K, L, k, warp, lane, b0, b_total, split, num_splits, part_v, part_i);
 }
@@ -203,9 +242,12 @@ extern "C" int64_t topk_f32_smem_bytes(int64_t d, int64_t k) {
 // occupancy the scoring kernel reaches, each split at least kMinSplit items.
 // Writes {num_splits, split_len} to `plan`.
 extern "C" int topk_f32_plan(int64_t b, int64_t i, int64_t d, int64_t k, void* plan) {
-  return plan_splits(topk_f32_partial_kernel,
-                     partial_smem_bytes(static_cast<int>(d), static_cast<int>(k)), b, i, kTile,
-                     kMinSplit, static_cast<int64_t*>(plan));
+  const int dc = chunk_cols(static_cast<int>(d), static_cast<int>(k));
+  const size_t smem = smem_bytes(static_cast<int>(d), dc, static_cast<int>(k));
+  return dc < d ? plan_splits(topk_f32_partial_kernel<true>, smem, b, i, kTile, kMinSplit,
+                              static_cast<int64_t*>(plan))
+                : plan_splits(topk_f32_partial_kernel<false>, smem, b, i, kTile, kMinSplit,
+                              static_cast<int64_t*>(plan));
 }
 
 extern "C" int topk_f32_launch(const void* users, const void* items, const void* mask,
@@ -218,15 +260,18 @@ extern "C" int topk_f32_launch(const void* users, const void* items, const void*
       reinterpret_cast<uintptr_t>(items) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = partial_smem_bytes(static_cast<int>(d), static_cast<int>(k));
+  const int dc = chunk_cols(static_cast<int>(d), static_cast<int>(k));
+  const size_t smem = smem_bytes(static_cast<int>(d), dc, static_cast<int>(k));
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = dc < d ? topk_f32_partial_kernel<true> : topk_f32_partial_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      topk_f32_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((b + kUsers - 1) / kUsers),
                   static_cast<unsigned>(num_splits));
-  topk_f32_partial_kernel<<<grid, kThreads, smem, st>>>(
+  kern<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(users), static_cast<const float*>(items),
-      static_cast<const int8_t*>(mask), b, i, static_cast<int>(d), static_cast<int>(k),
+      static_cast<const int8_t*>(mask), b, i, static_cast<int>(d), dc, static_cast<int>(k),
       split_len, static_cast<float*>(part_v), static_cast<int32_t*>(part_i));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

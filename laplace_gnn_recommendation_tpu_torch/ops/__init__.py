@@ -1,3 +1,4 @@
-"""Compute ops: SpMM tiers, top-k MIPS, metrics. Kernel wrappers live in
+"""Compute ops: SpMM tiers and the self-adjoint loop, top-k MIPS, metrics,
+CSR search and BPR sampling. Kernel wrappers live in
 ``spmm_pallas.py`` and ``topk_pallas.py`` (named after the JAX modules whose
 Pallas kernels they replace)."""

@@ -28,10 +28,21 @@ tables of at least 2¹⁹ rows) casts the table to bf16 once per call; each
 message is the bf16 product ``bf16(bf16(w)·bf16(x))`` and the messages are
 summed in f32.
 
-``pallas_segment_sum`` launches the kernel for tensors on the card (widths
-a multiple of 4 up to 128; others raise) and runs the plain version
-(``pallas_segment_sum_plain``: ``index_add_`` over the rows) for tensors on
-the CPU.
+``pallas_segment_sum`` launches the kernel for tensors on the card and runs
+the plain version (``pallas_segment_sum_plain``: ``index_add_`` over the
+rows) for tensors on the CPU. The kernel reads rows as float4 vectors, one
+lane each, so it takes widths that are a multiple of 4 up to ``MAX_WIDTH``
+on a 16-byte aligned table; the wrapper runs any other width in column
+blocks of at most ``MAX_WIDTH``, each copied into a fresh zero-padded table
+whose width is a multiple of 4, and cuts the padding off the result.
+
+Training: ``propagate_pallas`` is a ``torch.autograd.Function`` whose
+backward is the kernel on the other direction's plan (JAX
+``spmm_pallas.py:262-286``), and ``lightgcn_propagate_pallas`` carries the
+whole K-loop's self-adjoint backward (``ops/multiscale.py``), so a train
+step launches the kernel 2·K times forward and 2·K times backward. The
+kernel's output has no ``grad_fn`` of its own: gradients reach the E⁰
+tables only through these Functions.
 """
 from __future__ import annotations
 
@@ -44,7 +55,7 @@ import torch
 
 from .. import _build
 from ..data.graph import BipartiteGraph
-from .multiscale import multiscale_loop
+from .multiscale import dense_cotangent, self_adjoint_multiscale
 
 EDGES_PER_PIECE = 512
 MAX_WIDTH = 128   # the kernel's lanes cover D/4 four-element vectors, at most 32 of them
@@ -203,22 +214,48 @@ def pallas_segment_sum(
     gather_bf16: bool = False,
 ) -> torch.Tensor:
     """Σ_{e: dst(e)=row} w_e · table[src(e)] for every row — f32 [num_rows, D].
-    ``gather_bf16`` gathers bf16 rows (the table is cast once per call)."""
+    ``gather_bf16`` gathers bf16 rows (the table is cast once per call).
+    A width the kernel takes runs in one launch on the table as it is
+    (contiguous and 16-byte aligned, else this raises); any other width
+    runs in column blocks (:func:`by_column_blocks`)."""
     if table.device.type == "cpu":
         return pallas_segment_sum_plain(plan, table, gather_bf16)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
-    if table.dtype != torch.float32 or table.dim() != 2 or not table.is_contiguous():
-        raise ValueError(
-            f"table must be contiguous f32 [N, D], got {table.dtype} {tuple(table.shape)}"
-        )
+    if table.dtype != torch.float32 or table.dim() != 2:
+        raise ValueError(f"table must be f32 [N, D], got {table.dtype} {tuple(table.shape)}")
     if plan.src.device != table.device:
         raise ValueError(f"plan on {plan.src.device}, table on {table.device}")
+    return by_column_blocks(plan, table, gather_bf16, _segsum_launch)
+
+
+def by_column_blocks(plan: PallasSegmentPlan, table: torch.Tensor, gather_bf16: bool,
+                     segment_sum) -> torch.Tensor:
+    """``segment_sum(plan, table, gather_bf16)`` where the kernel takes the
+    width (a multiple of 4 up to ``MAX_WIDTH``); else ``segment_sum`` over
+    column blocks of at most ``MAX_WIDTH`` columns, each copied into a fresh
+    zero-padded table whose width is a multiple of 4, with the padding cut
+    off the result. Columns are independent, so the result is the one
+    full-width call's."""
+    n, d = table.shape
+    if d % 4 == 0 and 4 <= d <= MAX_WIDTH:
+        return segment_sum(plan, table, gather_bf16)
+    out = table.new_empty((plan.num_rows, d))
+    for c in range(0, d, MAX_WIDTH):
+        w = min(MAX_WIDTH, d - c)
+        block = table.new_zeros((n, -(-w // 4) * 4))
+        block[:, :w] = table[:, c:c + w]
+        out[:, c:c + w] = segment_sum(plan, block, gather_bf16)[:, :w]
+    return out
+
+
+def _segsum_launch(plan: PallasSegmentPlan, table: torch.Tensor, gather_bf16: bool) -> torch.Tensor:
+    """One launch of kernel A on a table of a width it takes."""
     d = int(table.shape[1])
-    if d % 4 or not 4 <= d <= MAX_WIDTH or table.data_ptr() % 16:
+    if not table.is_contiguous() or table.data_ptr() % 16:
         raise ValueError(
-            f"the segment-sum kernel takes widths that are a multiple of 4 up to "
-            f"{MAX_WIDTH} on a 16-byte aligned table, got D={d}"
+            f"the segment-sum kernel takes a contiguous, 16-byte aligned table, got "
+            f"D={d} with strides {table.stride()}"
         )
     if gather_bf16:
         table = table.to(torch.bfloat16)
@@ -283,14 +320,34 @@ class PallasGraph:
         )
 
 
+class _PropagatePallas(torch.autograd.Function):
+    """(Ã·item, Ãᵀ·user) with backward (Ã·g_item, Ãᵀ·g_user): each
+    direction's transpose is the other direction's plan (JAX
+    ``spmm_pallas.py:273-286``), run in the operand's gather mode."""
+
+    @staticmethod
+    def forward(ctx, pg, user_emb, item_emb):
+        ctx.pg = pg
+        return (
+            pallas_segment_sum(pg.to_user, item_emb, pg.gather_bf16),
+            pallas_segment_sum(pg.to_item, user_emb, pg.gather_bf16),
+        )
+
+    @staticmethod
+    def backward(ctx, g_new_user, g_new_item):
+        pg = ctx.pg
+        # new_user = Ã·item, new_item = Ãᵀ·user ⇒ ḡ_user = Ã·ḡ_new_item, ḡ_item = Ãᵀ·ḡ_new_user
+        g_user = pallas_segment_sum(pg.to_user, dense_cotangent(g_new_item), pg.gather_bf16)
+        g_item = pallas_segment_sum(pg.to_item, dense_cotangent(g_new_user), pg.gather_bf16)
+        return None, g_user, g_item
+
+
 def propagate_pallas(
     pg: PallasGraph, user_emb: torch.Tensor, item_emb: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Drop-in for ``spmm.propagate_bipartite`` on the segment-sum plans."""
-    return (
-        pallas_segment_sum(pg.to_user, item_emb, pg.gather_bf16),
-        pallas_segment_sum(pg.to_item, user_emb, pg.gather_bf16),
-    )
+    """Drop-in for ``spmm.propagate_bipartite`` on the segment-sum plans,
+    differentiable through kernel A (:class:`_PropagatePallas`)."""
+    return _PropagatePallas.apply(pg, user_emb, item_emb)
 
 
 def lightgcn_propagate_pallas(
@@ -300,5 +357,6 @@ def lightgcn_propagate_pallas(
     num_iterations: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K-iteration multi-scale mean (contract of ``spmm.lightgcn_propagate``)
-    through kernel A: 2·K launches."""
-    return multiscale_loop(propagate_pallas, pg, user_emb0, item_emb0, num_iterations)
+    through kernel A: 2·K launches, and 2·K more in its backward, the whole
+    loop's self-adjoint VJP (JAX ``spmm_pallas.py:289-301``)."""
+    return self_adjoint_multiscale(propagate_pallas, pg, user_emb0, item_emb0, num_iterations)

@@ -8,9 +8,12 @@ memory: item tiles are staged in shared memory and folded into a running
 k-best list per user; the catalog is cut into ranges that blocks fold in
 parallel (each kernel's C-side plan sizes them from its occupancy), and a
 merge pass combines each user's lists. Both share that fold
-(``csrc/topk_fold.cuh``). Kernel B takes widths that are a multiple of 4 on
-16-byte aligned tensors; kernel C takes any width. Each stages item tiles of
-128 rows.
+(``csrc/topk_fold.cuh``). Kernel B reads rows as float4 vectors, so its
+wrapper hands it widths that are a multiple of 4 on 16-byte aligned
+tensors: other widths are copied into fresh zero-padded tables
+(:func:`pad_columns`; a zero column adds exactly 0 to every score); rows
+too wide for two staged tiles are staged in column chunks inside the
+kernel. Kernel C takes any width. Each stages item tiles of 128 rows.
 
 Semantics (those of the Pallas fold ``_fold_topk``): the k best items by
 (score descending, item id ascending); slots no item fills hold
@@ -181,6 +184,15 @@ def _mask_ptr(excl_mask, b, i, device):
     return excl_mask.data_ptr()
 
 
+def pad_columns(x: torch.Tensor) -> torch.Tensor:
+    """``x`` copied into a fresh zero-padded [N, ⌈D/4⌉·4] tensor (aligned
+    by the allocator)."""
+    n, d = x.shape
+    out = x.new_zeros((n, -(-d // 4) * 4))
+    out[:, :d] = x
+    return out
+
+
 def streaming_mips_topk(
     user_emb: torch.Tensor,   # f32 [B, D]
     item_emb: torch.Tensor,   # f32 [I, D]
@@ -199,11 +211,11 @@ def streaming_mips_topk(
     i = int(item_emb.shape[0])
     _check(user_emb, "user_emb", torch.float32, (b, d), dev)
     _check(item_emb, "item_emb", torch.float32, (i, d), dev)
-    if d % 4 or user_emb.data_ptr() % 16 or item_emb.data_ptr() % 16:
-        raise ValueError(
-            f"kernel B takes widths that are a multiple of 4 on 16-byte aligned "
-            f"tensors, got D={d}"
-        )
+    if d % 4:
+        user_emb, item_emb = pad_columns(user_emb), pad_columns(item_emb)
+        d = int(user_emb.shape[1])
+    if user_emb.data_ptr() % 16 or item_emb.data_ptr() % 16:
+        raise ValueError(f"kernel B takes 16-byte aligned tensors, got D={d}")
     mask_ptr = _mask_ptr(excl_mask, b, i, dev)
     s, split_len = _plan("topk_f32", b, i, d, k, dev.index)
     part_v, part_i, vals, idx = _outputs(b, s, k, dev)

@@ -1,1 +1,2 @@
-"""Pipelines: the LightGCN eval and export subset."""
+"""Pipelines: LightGCN training, eval and export; Adam under the staircase
+decay, checkpoints, run statistics."""

@@ -1,10 +1,26 @@
-"""LightGCN eval / artifact-export pipeline — the serving subset of the JAX
-package's ``train/lightgcn_pipeline.py`` (training comes with the next
-slice).
+"""LightGCN training / eval / artifact-export pipeline — the port of the JAX
+package's ``train/lightgcn_pipeline.py`` (single device; the reference's
+``run_pipeline_lightgcn.py:20-242``):
+
+* a train step samples a BPR batch on the card (``ops/sampling.py``), runs
+  the K-hop forward, the BPR loss and its gradient — through kernel A and
+  the self-adjoint loop on the kernel tier, 2·K launches forward and 2·K
+  backward — and one Adam update under the staircase 0.95 decay
+  (``train/adam.py``);
+* eval = BPR loss over the eval split + batched recall/precision/NDCG@k with
+  train-edge exclusion (reference ``run_pipeline_lightgcn.py:20-73``);
+* ``train`` keeps the JAX loop's non-finite rollback, checkpoint/resume,
+  best-val selection and lazily built eval operands;
+* artifact export: per-user top-``num_recommendations`` item ids + the
+  embedding tables (reference ``run_pipeline_lightgcn.py:211-238``).
 
 Scoring embeddings: the reference's metrics and export consume the **E⁰**
 tables (``eval_embeddings="e0"``, the default); ``"final"`` scores with the
 propagated embeddings, as in the LightGCN paper.
+
+Random draws come from one ``torch.Generator`` on the data's card, seeded
+from ``cfg.seed``: a run is repeatable from its seed, but its draws are not
+the JAX package's (``jax.random`` keys).
 """
 from __future__ import annotations
 
@@ -13,13 +29,19 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from .. import resolve_device
 from ..configs import LightGCNConfig
 from ..data.graph import BipartiteGraph
 from ..data.lightgcn_data import EvalSet, LightGCNData, padded_user_items
-from ..models.lightgcn import LightGCNParams, lightgcn_forward
+from ..models.lightgcn import LightGCNParams, bpr_loss, init_lightgcn, lightgcn_forward
 from ..ops.metrics import topk_hits
+from ..ops.sampling import sample_bpr_batch, structured_negative_sampling
 from ..ops.topk import auto_mips_topk, masked_topk
+from .adam import StaircaseAdam
+from .checkpoint import load_latest, save_state, tree_clone, tree_leaves_with_path
+from .reporting import Stats
 
 
 # Node-table size from which the blocked tier gathers in bf16 (the JAX
@@ -68,6 +90,98 @@ def select_propagation(cfg: LightGCNConfig, graph: BipartiteGraph):
     return PallasGraph.from_graph(graph, width=width, gather_bf16=bf16)
 
 
+def _user_row_ptr(g: BipartiteGraph) -> torch.Tensor:
+    """CSR row pointers over the user-major edge order (JAX ``:53-57``)."""
+    return torch.cat([
+        torch.zeros(1, dtype=torch.int64, device=g.device),
+        torch.cumsum(g.user_deg.long(), 0),
+    ])
+
+
+def _on_device(graph: BipartiteGraph, device) -> torch.device:
+    """The graph's device, which must be the (resolved) ``device`` asked for."""
+    dev = resolve_device(device)
+    if graph.device.type != dev.type:
+        raise ValueError(f"the data's graphs are on {graph.device}, not on {dev}; "
+                         f"build them with device={dev.type!r}")
+    return graph.device
+
+
+def make_train_step(
+    cfg: LightGCNConfig,
+    graph: BipartiteGraph,
+    max_degree: int,
+    prop_graph=None,
+    device="cuda",
+):
+    """One train step over ``graph`` (JAX ``:140-205``): returns
+    (``step``, ``tx``). ``step(params, opt_state, generator)`` draws a BPR
+    batch, propagates over ``prop_graph`` (default ``graph``), takes the
+    loss's gradient w.r.t. both E⁰ tables and applies one Adam update to
+    ``params`` in place; it returns (params, opt_state, loss), the loss a
+    0-d tensor on the card (not read back, so the step never waits for the
+    card). ``tx`` is the :class:`StaircaseAdam` whose ``init`` makes the
+    first ``opt_state``."""
+    _on_device(graph, device)
+    tx = StaircaseAdam(cfg.learning_rate, cfg.lr_decay_every)
+    row_ptr = _user_row_ptr(graph)
+    prop = graph if prop_graph is None else prop_graph
+
+    def step(params: LightGCNParams, opt_state, generator: torch.Generator):
+        u, pos, neg = (x.long() for x in sample_bpr_batch(
+            generator, graph.edge_user, graph.edge_item, graph.num_edges, cfg.batch_size,
+            row_ptr, graph.edge_item, graph.num_items, max_degree,
+        ))
+        # leaves that share the tables' storage: the gradient is taken
+        # w.r.t. them, and the update then writes the tables in place
+        e0 = LightGCNParams(params.user_emb.detach().requires_grad_(),
+                            params.item_emb.detach().requires_grad_())
+        uf, u0, itf, it0 = lightgcn_forward(e0, prop, cfg.num_iterations)
+        loss = bpr_loss(uf[u], u0[u], itf[pos], it0[pos], itf[neg], it0[neg],
+                        cfg.Lambda, cfg.bpr_variant)
+        grads = LightGCNParams(*torch.autograd.grad(loss, (e0.user_emb, e0.item_emb)))
+        opt_state = tx.update_(grads, opt_state, params)
+        return params, opt_state, loss.detach()
+
+    return step, tx
+
+
+@torch.no_grad()
+def eval_loss(
+    cfg: LightGCNConfig,
+    params: LightGCNParams,
+    eval_graph: BipartiteGraph,
+    eval_set: EvalSet,
+    generator: torch.Generator,
+    max_degree: int,
+    prop_graph=None,
+) -> torch.Tensor:
+    """BPR loss over every edge of the eval split with one sampled negative
+    each (JAX ``:208-272``; reference ``run_pipeline_lightgcn.py:36-67``):
+    the rank term is the mean over the split's edges, the regulariser
+    λ·Σ over all of them. The forward runs over ``prop_graph`` (default
+    ``eval_graph``). The JAX package pads the edges to multiples of 4096
+    and masks the pads out; the port needs no padding."""
+    dev = eval_graph.device
+    e = len(eval_set.edge_user)
+    eu = torch.from_numpy(eval_set.edge_user.astype(np.int64)).to(dev)
+    ei = torch.from_numpy(eval_set.edge_item.astype(np.int64)).to(dev)
+    neg = structured_negative_sampling(
+        generator, eu, _user_row_ptr(eval_graph), eval_graph.edge_item,
+        eval_graph.num_items, max_degree,
+    ).long()
+    uf, u0, itf, it0 = lightgcn_forward(
+        params, eval_graph if prop_graph is None else prop_graph, cfg.num_iterations
+    )
+    reg = cfg.Lambda * (u0[eu] ** 2 + it0[ei] ** 2 + it0[neg] ** 2).sum()
+    diff = (uf[eu] * itf[ei]).sum(-1) - (uf[eu] * itf[neg]).sum(-1)
+    if cfg.bpr_variant == "legacy":
+        rank = -F.softplus(diff).sum() / max(e, 1)
+    else:
+        rank = -F.logsigmoid(diff).sum() / max(e, 1)
+    return rank + reg
+
+
 def _metrics_from_topk(
     topk_items: torch.Tensor,  # int [C, k]
     gt_items: torch.Tensor,    # [C, G]
@@ -111,6 +225,7 @@ def _metrics_chunk(
     return _metrics_from_topk(topk_items, gt_items, gt_count, valid, k)
 
 
+@torch.no_grad()
 def get_metrics(
     params: LightGCNParams,
     cfg: LightGCNConfig,
@@ -163,6 +278,34 @@ def get_metrics(
     return rs / cnt, hs / cnt / cfg.k, ns / cnt
 
 
+def evaluation(
+    cfg: LightGCNConfig,
+    params: LightGCNParams,
+    eval_graph: BipartiteGraph,
+    eval_set: EvalSet,
+    generator: torch.Generator,
+    max_degree: int,
+    eval_embeddings: str = "e0",
+    prop_graph=None,
+    metrics_prop_graph=None,
+) -> Tuple[float, float, float, float]:
+    """(loss, recall, precision, ndcg) — JAX ``:420-454``, reference
+    ``run_pipeline_lightgcn.py:20-73``. The loss propagates over the eval
+    split's own adjacency (``prop_graph``); the metrics under
+    ``eval_embeddings="final"`` over ``metrics_prop_graph`` — callers pass
+    the TRAIN operand, since the eval split's edges are the targets."""
+    loss = float(eval_loss(cfg, params, eval_graph, eval_set, generator, max_degree, prop_graph))
+    recall, precision, ndcg = get_metrics(
+        params, cfg, eval_set,
+        graph_for_final=(
+            metrics_prop_graph if metrics_prop_graph is not None
+            else (prop_graph if prop_graph is not None else eval_graph)
+        ),
+        eval_embeddings=eval_embeddings,
+    )
+    return loss, recall, precision, ndcg
+
+
 def export_artifacts(
     params: LightGCNParams,
     data: LightGCNData,
@@ -204,3 +347,157 @@ def export_artifacts(
         items_emb_final=params.item_emb[: data.num_items].cpu().numpy(),
     )
     return out
+
+
+def _finite_all(tree) -> bool:
+    """Whether every float tensor of ``tree`` is finite: one reduction, one
+    read from the card (the JAX ``train/encdec_pipeline._finite_all``)."""
+    flags = [torch.isfinite(x).all() for _, x in tree_leaves_with_path(tree)
+             if isinstance(x, torch.Tensor) and x.is_floating_point()]
+    return bool(torch.stack(flags).all()) if flags else True
+
+
+def _resume_seed(seed: int, start_it: int) -> int:
+    """Seed of the draw stream after a resume at ``start_it``: a stream of
+    its own, not a replay of the first run's (JAX ``fold_in``, ``:640-641``)."""
+    return int(np.random.SeedSequence([seed, start_it]).generate_state(1)[0])
+
+
+def train(
+    cfg: LightGCNConfig,
+    data: LightGCNData,
+    export: bool = True,
+    eval_embeddings: str = "e0",
+    log_fn=print,
+    device="cuda",
+) -> Stats:
+    """Full training loop — JAX ``:529-780``, reference
+    ``run_pipeline_lightgcn.py:76-232``, on one device: the device of the
+    data's graphs, which must be the ``device`` asked for (the card by
+    default).
+
+    Every ``eval_every`` steps: a non-finite loss, params or optimizer state
+    rolls back to a copy taken at the last finite eval point (the retried
+    steps draw new batches); else the val split is evaluated. Every
+    ``checkpoint_every`` steps a finite (params, opt_state) is saved under
+    ``artifact_dir/lightgcn_ckpt``; ``resume`` continues from the newest one
+    with a new draw stream. ``select_best_val`` reports test metrics from
+    the best val recall seen. ``Stats.loss_curve`` holds every step's loss.
+    """
+    cfg.print()
+    dev = _on_device(data.train_graph, device)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    params = init_lightgcn(data.num_users, data.num_items, cfg.hidden_layer_size,
+                           generator=gen, device=dev)
+
+    def max_degree(g: BipartiteGraph) -> int:
+        return max(1, int(g.user_deg.max().item())) if g.num_users else 1
+
+    max_deg_train = max_degree(data.train_graph)
+    # one bound for both eval splits, as in the JAX package; it only has to
+    # be at least each split's true maximum
+    max_deg_eval = max(max_degree(data.val_graph), max_degree(data.test_graph))
+    train_prop = select_propagation(cfg, data.train_graph)
+    # val/test operands are built at their first eval (host plan build and
+    # card memory are wasted when eval_every is sparse)
+    _prop_cache: dict = {}
+
+    def eval_prop(name: str, graph: BipartiteGraph):
+        if name not in _prop_cache:
+            _prop_cache[name] = select_propagation(cfg, graph)
+        return _prop_cache[name]
+
+    step_fn, tx = make_train_step(cfg, data.train_graph, max_deg_train,
+                                  prop_graph=train_prop, device=dev)
+    opt_state = tx.init(params)
+
+    ckpt_dir = os.path.join(cfg.artifact_dir, "lightgcn_ckpt")
+    start_it = 0
+    if cfg.resume:
+        state, ver = load_latest(ckpt_dir, {"params": params, "opt_state": opt_state})
+        if ver is not None:
+            params, opt_state = state["params"], state["opt_state"]
+            start_it = ver + 1
+            gen.manual_seed(_resume_seed(cfg.seed, start_it))
+            log_fn(f"| Resuming from checkpoint (iteration {start_it})...")
+
+    def evaluate(name, graph, eval_set):
+        return evaluation(
+            cfg, params, graph, eval_set, gen, max_deg_eval, eval_embeddings,
+            prop_graph=eval_prop(name, graph), metrics_prop_graph=train_prop,
+        )
+
+    train_loss = torch.zeros((), device=dev)
+    losses = []
+    recall = precision = 0.0
+    best_recall, best_params, last_evaled = -1.0, None, -1
+    last_good = None  # copies of (params, opt_state) at the last finite eval point
+    for it in range(start_it, cfg.epochs):
+        params, opt_state, train_loss = step_fn(params, opt_state, gen)
+        losses.append(train_loss)
+
+        if cfg.checkpoint_every and it % cfg.checkpoint_every == 0 and it > start_it:
+            # never persist a poisoned state: resume loads the newest checkpoint
+            if np.isfinite(float(train_loss)) and _finite_all((params, opt_state)):
+                save_state(os.path.join(ckpt_dir, f"model_{it}"),
+                           {"params": params, "opt_state": opt_state})
+            else:
+                log_fn(f"| skipping checkpoint at iter {it}: non-finite state")
+
+        if it % cfg.eval_every == 0:
+            # checked on params AND optimizer state: an inf second moment
+            # keeps the params finite while it zeroes every later update
+            if not np.isfinite(float(train_loss)) or not _finite_all((params, opt_state)):
+                if last_good is None:
+                    raise FloatingPointError(
+                        f"non-finite loss {float(train_loss)} at iter {it} "
+                        "before any finite eval point"
+                    )
+                # hand out copies: the update writes the tables in place, and
+                # the snapshot must survive repeated rollbacks
+                params, opt_state = tree_clone(last_good)
+                log_fn(f"| non-finite loss at iter {it}: rolled back to the "
+                       "last finite eval point")
+                continue
+            last_good = tree_clone((params, opt_state))
+            val_loss, recall, precision, ndcg = evaluate("val", data.val_graph, data.val_set)
+            last_evaled = it
+            if recall > best_recall:
+                best_recall, best_params = recall, (tree_clone(params), precision)
+            log_fn(
+                f"[Iter {it}/{cfg.epochs}] train_loss: {float(train_loss):.5f}, "
+                f"val_loss: {val_loss:.5f}, val_recall@{cfg.k}: {recall:.6f}, "
+                f"val_precision@{cfg.k}: {precision:.6f}, val_ndcg@{cfg.k}: {ndcg:.6f}"
+            )
+
+    if cfg.select_best_val:
+        if last_evaled != cfg.epochs - 1:  # the last iterate was never scored
+            _, recall, precision, _ = evaluate("val", data.val_graph, data.val_set)
+            if recall > best_recall:
+                best_recall, best_params = recall, (params, precision)
+        if best_params is not None and best_params[0] is not params:
+            log_fn(f"| select_best_val: using checkpoint with val recall "
+                   f"{best_recall:.6f} (final iterate: {recall:.6f})")
+        if best_params is not None:
+            params, precision = best_params
+            recall = best_recall
+
+    test_loss, test_recall, test_precision, test_ndcg = evaluate(
+        "test", data.test_graph, data.test_set)
+    log_fn(
+        f"[test_loss: {test_loss:.5f}, test_recall@{cfg.k}: {test_recall:.5f}, "
+        f"test_precision@{cfg.k}: {test_precision:.5f}, test_ndcg@{cfg.k}: {test_ndcg:.5f}]"
+    )
+
+    if export:
+        export_artifacts(params, data, cfg, cfg.artifact_dir)
+
+    return Stats(
+        loss=float(train_loss),
+        recall_val=recall,
+        recall_test=test_recall,
+        precision_val=precision,
+        precision_test=test_precision,
+        params=params if cfg.return_params else None,
+        loss_curve=torch.stack(losses).tolist() if losses else [],
+    )

@@ -55,6 +55,24 @@ def test_importing_builds_nothing():
     assert not _build._libs and not _build.build_log
 
 
+def _cfg():
+    from laplace_gnn_recommendation_tpu_torch.configs import LightGCNConfig
+
+    return LightGCNConfig(epochs=1, hidden_layer_size=4, batch_size=8, num_iterations=1)
+
+
+def _cpu_data():
+    from laplace_gnn_recommendation_tpu_torch.data.lightgcn_data import create_lightgcn_data
+
+    return create_lightgcn_data(np.arange(40) % 8, np.arange(40) % 5, 8, 5, device="cpu")
+
+
+def _train_on_default_device():
+    from laplace_gnn_recommendation_tpu_torch.train.lightgcn_pipeline import train
+
+    return train(_cfg(), _cpu_data(), export=False, log_fn=lambda *_: None)
+
+
 ENTRY_POINTS = {
     "BipartiteGraph.from_edges": lambda: __import__(
         "laplace_gnn_recommendation_tpu_torch.data.graph", fromlist=["x"]
@@ -71,6 +89,10 @@ ENTRY_POINTS = {
     "RetrievalServer": lambda: __import__(
         "laplace_gnn_recommendation_tpu_torch.serving", fromlist=["x"]
     ).RetrievalServer(np.zeros((3, 2)), np.zeros((4, 2)), k=2),
+    "train": lambda: _train_on_default_device(),
+    "make_train_step": lambda: __import__(
+        "laplace_gnn_recommendation_tpu_torch.train.lightgcn_pipeline", fromlist=["x"]
+    ).make_train_step(_cfg(), _cpu_data().train_graph, 1),
     "RetrievalServer.quantized": lambda: __import__(
         "laplace_gnn_recommendation_tpu_torch.serving", fromlist=["x"]
     ).RetrievalServer(np.zeros((3, 2)), np.zeros((4, 2)), k=2, quantized=True),
