@@ -48,7 +48,30 @@ on one NVIDIA H100: ``python3 chip_smoke.py`` from the repository root.
    and resumed from its newest checkpoint. Kernel A is also held against
    its plain version at D=30 and D=160 (padded columns, column blocks), and
    kernel B at D=30 (padded rows) and D=160 (column-chunked tiles).
-6. Prints a ``{"kernels": [...]}`` JSON line, the card's line, and as the
+6. The dense tier at MovieLens-1M shape (``movielens_like_edges(seed=0)``:
+   6,040 × 3,706, ~1M interactions; D=32, K=4, ``LightGCNConfig``
+   defaults): ``auto`` must pick ``DenseAdjacency`` as the JAX rule does; its
+   forward is held against the same tier on the CPU and against the plain
+   f32 forward; the forward is timed beside kernel A's on the same graph, and
+   one ``make_train_step`` step on it.
+7. The ranking stack at ``Config``'s widths (hidden 128, output 64, 2 GNN
+   and 2 linear layers, ``add`` / ``sum``) on ``bench_encdec_scale.py``'s
+   graph (200,000 users × 50,000 items, average degree 16, 2 + 2 features of
+   cardinality 64; batch 256, 24 neighbours, 2 hops, k 12, pool 20, probed
+   budgets): the native sampler must build; sampler batches/s with 1 and 2
+   workers; one train step (device and call ms, idle share, peak memory,
+   dense or segment path); the step's kernel time with its row gathers'
+   sorted segment sums against ``F.embedding`` and ``table[idx]`` as the
+   gather, and whether one batch's gradients repeat bit for bit (they must
+   with the port's own); train users/s through sampler + prefetch + step;
+   eval users/s; ``RankingServer.recommend`` for 1,000 users; one
+   ``conv_agg_type="max"`` step (the segment path) held against the same
+   step in f64 on the CPU. Then ``run_pipeline`` at the same widths on a
+   20,000 × 5,000 graph for 3 epochs, twice with one seed on the dense
+   subgraph path and twice on the segment path, and a resume leg.
+   These paths launch none of the three kernels: their counters are zeroed
+   before each and read after.
+8. Prints a ``{"kernels": [...]}`` JSON line, the card's line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero; the script needs a CUDA card and the checkout.
@@ -78,6 +101,24 @@ TRAIN_CFG = dict(hidden_layer_size=32, num_iterations=4, batch_size=32_768, lear
                  propagation="auto")
 TRAIN_STEPS, TRAIN_EVAL_EVERY, TRAIN_CKPT_EVERY, RESUME_STEPS = 30, 10, 10, 10
 TRAIN_DIR = os.path.join("_chip", "smoke_train")   # checkpoints, removed at the end
+# the ranking stack: bench_encdec_scale.py's graph and sampler settings
+RANK_USERS, RANK_ITEMS, RANK_DEGREE, RANK_FEATURE_CARD = 200_000, 50_000, 16, 64
+RANK_CFG = dict(batch_size=256, num_neighbors=24, n_hop_neighbors=2, k=12,
+                candidate_pool_size=20, budget_probe=8)
+RANK_TIMED_BATCHES, RANK_SERVE_USERS = 30, 1_000
+# run_pipeline's training outcome, on a graph cut so three epochs fit
+PIPE_USERS, PIPE_ITEMS, PIPE_EPOCHS = 20_000, 5_000, 3
+PIPE_DIR = os.path.join("_chip", "smoke_encdec")   # checkpoints, removed at the end
+# the max-aggregation step against f64 on the CPU: logits to this share of
+# (1 + their largest); all gradients, as one vector, to this share of the
+# reference's L2 norm (a segment maximum whose runner-up lies within f32
+# rounding may route one entry's gradient to another message, so no
+# per-entry bound is set on the gradients)
+TOL_RANK_LOGITS, TOL_RANK_GRAD = 1e-4, 1e-3
+# the dense tier against the plain f32 forward (bf16 Ã and operands, the JAX
+# test's bound) and against itself on the CPU (f32 sums in another order)
+TOL_DENSE_VS_PLAIN = (2e-3, 2e-2)   # (atol, rtol)
+TOL_DENSE_CPU = 1e-5
 WINDOW_SHARES = (0, 0.25, 0.5, 0.75)   # kernel A's window sizes tried, as shares of L2
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at a 700 W limit)
@@ -485,6 +526,359 @@ def train_phase(torch, data, dev, record):
             or len(s3.loss_curve) != TRAIN_STEPS + RESUME_STEPS - start - 1:
         fail(f"train(): the resume did not continue from the checkpoint of iteration {start}")
     record["training"] = out
+    return out
+
+def dense_phase(torch, dev, record):
+    """Phase 6: the dense tier at MovieLens-1M shape."""
+    from laplace_gnn_recommendation_tpu_torch import _build
+    from laplace_gnn_recommendation_tpu_torch.configs import LightGCNConfig
+    from laplace_gnn_recommendation_tpu_torch.data.lightgcn_data import create_lightgcn_data
+    from laplace_gnn_recommendation_tpu_torch.data.synthetic import movielens_like_edges
+    from laplace_gnn_recommendation_tpu_torch.models.lightgcn import (
+        LightGCNParams, init_lightgcn, lightgcn_forward)
+    from laplace_gnn_recommendation_tpu_torch.ops import spmm_dense as sd
+    from laplace_gnn_recommendation_tpu_torch.ops import spmm_pallas as sp
+    from laplace_gnn_recommendation_tpu_torch.train.lightgcn_pipeline import (
+        make_train_step, select_propagation)
+
+    t0 = time.perf_counter()
+    eu, ei, nu, ni = movielens_like_edges(seed=0)
+    data = create_lightgcn_data(eu, ei, nu, ni, device=dev)
+    graph = data.train_graph
+    t_data = time.perf_counter() - t0
+    cfg = LightGCNConfig()   # D=32, K=4, propagation="auto", dense_bytes_budget 4 GiB
+    t0 = time.perf_counter()
+    dense = select_propagation(cfg, graph)
+    t_build = time.perf_counter() - t0
+    if not isinstance(dense, sd.DenseAdjacency):
+        fail(f"dense tier: propagation='auto' picked {type(dense).__name__} at ML-1M shape")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = init_lightgcn(nu, ni, cfg.hidden_layer_size, generator=gen, device=dev)
+    k_iter = cfg.num_iterations
+
+    _build.launches.clear()
+    uf, _, itf, _ = lightgcn_forward(params, dense, k_iter)
+    torch.cuda.synchronize()
+    fwd_launches = dict(_build.launches)
+    if uf.dtype != torch.float32 or not (torch.isfinite(uf).all() and torch.isfinite(itf).all()):
+        fail("dense tier: the forward is not finite f32")
+    # the same tier on the CPU (bf16 operands upcast, f32 products)
+    cpu_dense = sd.DenseAdjacency(dense.a.cpu(), dense.a_t.cpu(), nu, ni)
+    cuf, _, citf, _ = lightgcn_forward(
+        LightGCNParams(params.user_emb.cpu(), params.item_emb.cpu()), cpu_dense, k_iter)
+    cpu_err = max(float((uf.cpu() - cuf).abs().max()), float((itf.cpu() - citf).abs().max()))
+    if not cpu_err <= TOL_DENSE_CPU:
+        fail(f"dense tier: card and CPU differ by {cpu_err} > {TOL_DENSE_CPU}")
+    puf, _, pitf, _ = lightgcn_forward(params, graph, k_iter)
+    atol, rtol = TOL_DENSE_VS_PLAIN
+    plain_err = max(float((uf - puf).abs().max()), float((itf - pitf).abs().max()))
+    for out, ref in ((uf, puf), (itf, pitf)):
+        if float(((out - ref).abs() - (atol + rtol * ref.abs())).max()) > 0:
+            fail(f"dense tier: beyond atol {atol} + rtol {rtol} of the plain f32 forward")
+    kernel_a = sp.PallasGraph.from_graph(graph, width=cfg.hidden_layer_size)
+
+    def fwd(op):
+        return lambda: lightgcn_forward(params, op, k_iter)
+
+    timing = {}
+    for name, op in (("dense", dense), ("kernel_a_f32", kernel_a), ("plain", graph)):
+        d_ms, h_ms = device_ms(torch, fwd(op), 10)
+        timing[name] = dict(device_ms=d_ms, host_ms=h_ms, call_ms=time_ms(torch, fwd(op), 10))
+    max_deg = int(graph.user_deg.max())
+    step, tx = make_train_step(cfg, graph, max_deg, prop_graph=dense, device=dev)
+    state = [tx.init(params)]
+
+    def one_step():
+        _, state[0], loss = step(params, state[0], gen)
+        return loss
+
+    one_step()
+    _build.launches.clear()
+    loss = one_step()
+    torch.cuda.synchronize()
+    step_launches = dict(_build.launches)
+    if not bool(torch.isfinite(loss)):
+        fail("dense tier: non-finite train-step loss")
+    step_dev, step_host = device_ms(torch, one_step, 10)
+    out = dict(
+        users=nu, items=ni, train_edges=int(graph.num_edges), data_s=t_data,
+        dense_build_s=t_build,
+        forward_launches=fwd_launches, step_launches=step_launches,
+        max_abs_err_vs_cpu=cpu_err, tol_vs_cpu=TOL_DENSE_CPU,
+        max_abs_err_vs_plain_f32=plain_err, tol_vs_plain=f"atol {atol} + rtol {rtol}",
+        forward=timing, step_device_ms=step_dev, step_host_ms=step_host,
+        step_call_ms=time_ms(torch, one_step, 10),
+        kernel_a_faster=timing["kernel_a_f32"]["device_ms"] < timing["dense"]["device_ms"],
+    )
+    if any(fwd_launches.values()) or any(step_launches.values()):
+        fail(f"dense tier launched kernels: {fwd_launches} {step_launches}")
+    log("dense:", json.dumps(out))
+    record["dense"] = out
+    return out
+
+
+def ranking_phase(torch, dev, record):
+    """Phase 7: the ranking stack at ``Config``'s widths."""
+    import copy
+    import itertools
+
+    import torch.nn.functional as F
+
+    from laplace_gnn_recommendation_tpu_torch import _build, native
+    from laplace_gnn_recommendation_tpu_torch.configs import Config
+    from laplace_gnn_recommendation_tpu_torch.data.link_pred_data import (
+        create_link_pred_data, create_samplers)
+    from laplace_gnn_recommendation_tpu_torch.data.prefetch import prefetch
+    from laplace_gnn_recommendation_tpu_torch.data.sampler import parallel_epoch_batches
+    from laplace_gnn_recommendation_tpu_torch.data.synthetic import random_hetero_graph
+    from laplace_gnn_recommendation_tpu_torch.models import sage
+    from laplace_gnn_recommendation_tpu_torch.serving import RankingServer
+    from laplace_gnn_recommendation_tpu_torch.train import encdec_pipeline as ep
+    from laplace_gnn_recommendation_tpu_torch.train.adam import Adam
+    from laplace_gnn_recommendation_tpu_torch.train.checkpoint import tree_leaves_with_path
+
+    out = {}
+    t0 = time.perf_counter()
+    built = native.available()
+    out["native_build_s"] = time.perf_counter() - t0
+    if not built:
+        fail("the native sampler library did not build")
+    out["native_library"] = os.path.relpath(native.library_path())
+
+    t0 = time.perf_counter()
+    g = random_hetero_graph(seed=0, num_users=RANK_USERS, num_items=RANK_ITEMS,
+                            avg_degree=RANK_DEGREE, num_user_features=2, num_item_features=2,
+                            feature_cardinality=RANK_FEATURE_CARD)
+    cfg = Config(**RANK_CFG)
+    data = create_link_pred_data(g, cfg, device=dev)
+    out["data_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_s, _, test_s = create_samplers(cfg, data, seed=0)
+    out["samplers_s"] = time.perf_counter() - t0
+    if train_s._native is None:
+        fail("the train sampler is not on the native path")
+    bud = train_s.budgets
+    use_dense = 0 < 2 * bud.num_user_slots * bud.num_item_slots * 4 <= cfg.dense_bytes_budget
+    out.update(budgets=dataclasses.asdict(bud), dense_subgraph_path=use_dense,
+               train_edges=int(data.splits["train"].user_csr.cols.shape[0]))
+    log("ranking data:", json.dumps(out))
+
+    # sampler batches/s, 1 and 2 workers
+    rng = np.random.default_rng(0)
+    train_s.sample_batch(rng.integers(0, RANK_USERS, cfg.batch_size))
+    t0 = time.perf_counter()
+    edges = 0
+    for _ in range(RANK_TIMED_BATCHES):
+        edges += int(train_s.sample_batch(rng.integers(0, RANK_USERS, cfg.batch_size)).edge_mask.sum())
+    out["sampler_batches_per_s_1_worker"] = RANK_TIMED_BATCHES / (time.perf_counter() - t0)
+    out["edges_per_batch"] = edges / RANK_TIMED_BATCHES
+    it = parallel_epoch_batches(train_s, num_workers=2, shuffle=True)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in itertools.islice(it, RANK_TIMED_BATCHES):
+        pass
+    out["sampler_batches_per_s_2_workers"] = RANK_TIMED_BATCHES / (time.perf_counter() - t0)
+    it.close()
+
+    # one train step
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, bn_state = sage.init_sage_params(cfg, sage.get_feature_info(data.graph),
+                                             float_dims=data.float_dims(), generator=gen,
+                                             device=dev)
+    tx = Adam(cfg.learning_rate)
+    st = dict(bn=bn_state, opt=tx.init(sage.jax_tree(params)))
+    step = ep.make_train_step(cfg, data, tx)
+    b0 = train_s.sample_batch(rng.integers(0, RANK_USERS, cfg.batch_size)).to(dev)
+
+    def one_step():
+        _, st["bn"], st["opt"], loss = step(params, st["bn"], st["opt"], b0, gen)
+        return loss
+
+    one_step()
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    loss0 = one_step()
+    torch.cuda.synchronize()
+    out["step_launches"] = dict(_build.launches)
+    out["step_peak_bytes_above_start"] = torch.cuda.max_memory_allocated(dev) - base_mem
+    out["step_start_bytes"] = base_mem
+    if not bool(torch.isfinite(loss0)):
+        fail("ranking train step: non-finite loss")
+    out["step_device_ms"], out["step_host_ms"] = device_ms(torch, one_step, 10)
+    out["step_call_ms"] = time_ms(torch, one_step, 10)
+    tr = trace(torch, one_step)
+    out["step_trace"] = dict(wall_ms=tr["wall_ms"], device_busy_ms=tr["device_busy_ms"],
+                             device_idle_share=tr["device_idle_share"],
+                             by_kind=kernel_categories(tr["top"]))
+
+    # the step's row gathers (sorted segment sums as their backward) against
+    # the library's: kernel time of the step, and whether one batch's
+    # gradients come out the same bits twice
+    def grads_repeat():
+        grads = []
+        for _ in range(2):
+            for p_ in params.parameters():
+                p_.grad = None
+            gen.manual_seed(11)
+            logits, _ = sage.forward(params, st["bn"], b0, data.user_features,
+                                     data.item_features, cfg, train=True, generator=gen)
+            sage.bce_loss(logits, b0).backward()
+            grads.append(torch.cat([p_.grad.flatten() for p_ in params.parameters()]))
+        return bool(torch.equal(*grads))
+
+    ours, gathers = sage._rows, {}
+    for name, fn in (("sorted_sum", ours),
+                     ("F.embedding", lambda t, i, plan=None: F.embedding(i, t)),
+                     ("table[idx]", lambda t, i, plan=None: t[i])):
+        sage._rows = fn
+        try:
+            gathers[name] = dict(step_device_busy_ms=trace(torch, one_step)["device_busy_ms"],
+                                 step_call_ms=time_ms(torch, one_step, 10),
+                                 grads_repeat=grads_repeat())
+        finally:
+            sage._rows = ours
+    out["step_gathers"] = gathers
+    if not gathers["sorted_sum"]["grads_repeat"]:
+        fail("ranking step: one batch's gradients differ between two identical passes")
+
+    # train users/s: sampler + prefetch (upload on its thread) + step
+    chunks = train_s.epoch_user_chunks(shuffle=True)[:RANK_TIMED_BATCHES]
+    feed = (train_s.sample_batch(c, valid_rows=v) for c, v in chunks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in prefetch(feed, buffer_size=2, transform=lambda x: x.to(dev)):
+        step(params, st["bn"], st["opt"], b, gen)
+    torch.cuda.synchronize()
+    out["train_users_per_s"] = sum(v for _, v in chunks) / (time.perf_counter() - t0)
+
+    # eval users/s through the native eval assembly + infer
+    eval_step = ep.make_eval_step(cfg, data)
+    chunks = test_s.epoch_user_chunks(shuffle=False)[: RANK_TIMED_BATCHES // 3 + 1]
+    batches = prefetch((test_s.sample_batch(c, valid_rows=v) for c, v in chunks),
+                       buffer_size=2, transform=lambda x: x.to(dev))
+    eval_step(params, st["bn"], next(batches))   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = [eval_step(params, st["bn"], b)[0] for b in batches]
+    torch.cuda.synchronize()
+    out["eval_users_per_s"] = sum(v for _, v in chunks[1:]) / (time.perf_counter() - t0)
+    out["eval_recall_at_12_random_weights"] = float(torch.stack(recs).mean())
+
+    # RankingServer.recommend for 1,000 users
+    server = RankingServer(cfg, data, params, st["bn"])
+    warm = np.flatnonzero(server.sampler.users.degrees > 0)
+    req = np.random.default_rng(1).choice(warm, RANK_SERVE_USERS, replace=False)
+    server.recommend(req[: cfg.batch_size])
+    _build.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = server.recommend(req)
+    out["recommend_1000_users_s"] = time.perf_counter() - t0
+    out["recommend_launches"] = dict(_build.launches)
+    if ids.shape != (RANK_SERVE_USERS, cfg.k) or (ids >= RANK_ITEMS).any() or (ids < -1).any():
+        fail("RankingServer: bad output")
+    seen_csr = data.splits["test"].user_csr
+    filled = 0
+    for row, u in zip(ids, req):
+        got = row[row >= 0]
+        filled += len(got)
+        if len(set(got.tolist())) != len(got) or np.isin(got, seen_csr.neighbors(int(u))).any():
+            fail(f"RankingServer: user {u} got a duplicate or an already-seen item")
+    out["recommend_filled_share"] = filled / ids.size
+    log("ranking:", json.dumps(out))
+
+    # one max-aggregation step (the segment path) against f64 on the CPU
+    cfg_max = dataclasses.replace(cfg, conv_agg_type="max", p_dropout_features=0.0)
+    bmax = train_s.sample_batch(rng.integers(0, RANK_USERS, cfg.batch_size))
+    # fresh weights: the trained ones have drifted to large pre-BatchNorm
+    # activations, whose mean subtraction cancels digits in f32
+    mparams, mbn = sage.init_sage_params(cfg_max, sage.get_feature_info(data.graph),
+                                         generator=torch.Generator(device=dev).manual_seed(7),
+                                         device=dev)
+    ref_model = copy.deepcopy(mparams).to("cpu", torch.float64)
+    ref_bn = {t: {k: v.cpu().double() for k, v in s.items()} for t, s in mbn.items()}
+    results = {}
+    for name, model, bn, d in (("card", mparams, mbn, data), ("cpu_f64", ref_model, ref_bn, None)):
+        uf = data.user_features if d is not None else data.user_features.cpu()
+        itf = data.item_features if d is not None else data.item_features.cpu()
+        for p_ in model.parameters():
+            p_.grad = None
+        logits, _ = sage.forward(model, bn, bmax.to(uf.device), uf, itf, cfg_max, train=True)
+        sage.bce_loss(logits, bmax.to(uf.device)).backward()
+        results[name] = (logits.detach().cpu().double(),
+                         {k: v.detach().cpu().double()
+                          for k, v in tree_leaves_with_path(sage.grad_tree(model))})
+    lg, gr = results["card"]
+    rlg, rgr = results["cpu_f64"]
+    logit_err = float((lg - rlg).abs().max())
+    logit_tol = TOL_RANK_LOGITS * (1 + float(rlg.abs().max()))
+    g_all = torch.cat([gr[k].flatten() for k in sorted(rgr)])
+    r_all = torch.cat([rgr[k].flatten() for k in sorted(rgr)])
+    grad_rel = float((g_all - r_all).norm() / r_all.norm())
+    out["max_step"] = dict(
+        logits_max_abs_err=logit_err, logits_tol=logit_tol, grad_rel_l2_err=grad_rel,
+        grad_tol=TOL_RANK_GRAD, grad_max_abs_err=float((g_all - r_all).abs().max()),
+        grad_largest=float(r_all.abs().max()), edges=int(bmax.edge_mask.sum()))
+    log("ranking max step:", json.dumps(out["max_step"]))
+    if not (logit_err <= logit_tol and grad_rel <= TOL_RANK_GRAD):
+        fail(f"max-aggregation step differs from f64 on the CPU: {out['max_step']}")
+    del ref_model, mparams, server, data, train_s, test_s, params
+
+    # run_pipeline at the same widths on a smaller graph: dense and segment
+    # subgraph paths, each twice with one seed, then a resume leg
+    gp = random_hetero_graph(seed=1, num_users=PIPE_USERS, num_items=PIPE_ITEMS,
+                             avg_degree=RANK_DEGREE, num_user_features=2, num_item_features=2,
+                             feature_cardinality=RANK_FEATURE_CARD)
+    runs = {}
+    for path, budget in (("dense", cfg.dense_bytes_budget), ("segment", 0)):
+        pcfg = dataclasses.replace(cfg, epochs=PIPE_EPOCHS, eval_every=1, save_model=True,
+                                   save_every=1.0 / PIPE_EPOCHS, dense_bytes_budget=budget)
+        pdata = create_link_pred_data(gp, pcfg, device=dev)
+        pb = create_samplers(pcfg, pdata, seed=pcfg.seed)[0].budgets
+        took_dense = 0 < 2 * pb.num_user_slots * pb.num_item_slots * 4 <= budget
+        if took_dense != (path == "dense"):
+            fail(f"run_pipeline {path}: the subgraph path is not the one asked for ({pb})")
+        legs = []
+        for leg in range(2):
+            shutil.rmtree(PIPE_DIR, ignore_errors=True)
+            _build.launches.clear()
+            t0 = time.perf_counter()
+            stats = ep.run_pipeline(pcfg, pdata, model_dir=PIPE_DIR, log_fn=lambda *_: None,
+                                    device=dev)
+            torch.cuda.synchronize()
+            legs.append(dict(wall_s=time.perf_counter() - t0, loss_curve=stats.loss_curve,
+                             val_recall_at_12=stats.recall_val,
+                             val_precision_at_12=stats.precision_val,
+                             test_recall_at_12=stats.recall_test,
+                             test_precision_at_12=stats.precision_test,
+                             truncations=stats.truncations, launches=dict(_build.launches)))
+        logs = []
+        resumed = ep.run_pipeline(dataclasses.replace(pcfg, epochs=PIPE_EPOCHS + 1), pdata,
+                                  model_dir=PIPE_DIR, log_fn=lambda m: logs.append(str(m)),
+                                  resume=True, device=dev)
+        shutil.rmtree(PIPE_DIR, ignore_errors=True)
+        a, b = legs
+        spread = float(np.max(np.abs(np.subtract(a["loss_curve"], b["loss_curve"]))))
+        runs[path] = dict(
+            budgets=dataclasses.asdict(pb), runs=legs, same_seed_equal=a["loss_curve"] == b["loss_curve"]
+            and a["test_recall_at_12"] == b["test_recall_at_12"],
+            loss_curve_max_abs_spread=spread,
+            test_recall_spread=abs(a["test_recall_at_12"] - b["test_recall_at_12"]),
+            resumed=any(f"Resuming from checkpoint (epoch {PIPE_EPOCHS})" in m for m in logs),
+            resumed_loss_curve=resumed.loss_curve, resumed_test_recall_at_12=resumed.recall_test,
+        )
+        log(f"run_pipeline {path}:", json.dumps(runs[path]))
+        curve = a["loss_curve"]
+        if len(curve) != PIPE_EPOCHS or not np.isfinite(curve).all() or not curve[-1] < curve[0]:
+            fail(f"run_pipeline {path}: loss curve {curve}")
+        if not (runs[path]["resumed"] and len(resumed.loss_curve) == 1):
+            fail(f"run_pipeline {path}: the resume leg did not continue at epoch {PIPE_EPOCHS}")
+        if any(any(leg["launches"].values()) for leg in legs):
+            fail(f"run_pipeline {path} launched kernels")
+    out["run_pipeline"] = runs
+    record["ranking"] = out
     return out
 
 
@@ -967,6 +1361,11 @@ def main() -> int:
 
     # ---- 5. training --------------------------------------------------------
     training = train_phase(torch, data, dev, record)
+    del data, graph, prop, params
+
+    # ---- 6. the dense tier; 7. the ranking stack ----------------------------
+    dense_phase(torch, dev, record)
+    ranking_phase(torch, dev, record)
 
     kern["segsum"]["launches"] = launches["segsum"]
     kern["segsum"].update(

@@ -5,6 +5,9 @@
   tensors on an explicit device. Symmetric ``gcn_norm`` weights are
   precomputed at build time.
 * :class:`HostCSR` — host-side (numpy) CSR adjacency; never on the device.
+* :class:`HeteroGraph` — the typed multi-relation graph of the ranking
+  stack (numpy on the host), with ``save_hetero_graph`` /
+  ``load_hetero_graph`` (one npz, the JAX package's format).
 
 Pad discipline (kept from the JAX package): padded edge slots carry
 ``weight == 0`` and repeat the LAST real ids, so each sort order stays
@@ -12,13 +15,15 @@ non-decreasing and every segment-sum treats them as no-ops.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..types import EdgeType
 
 
 def _round_up(x: int, m: int) -> int:
@@ -161,3 +166,68 @@ class HostCSR:
     @property
     def degrees(self) -> np.ndarray:
         return np.diff(self.row_ptr)
+
+
+@dataclass
+class HeteroGraph:
+    """Typed multi-relation graph: features per node type + a bipartite edge
+    set per edge type (JAX ``data/graph.py:205-235``).
+
+    ``node_features[t]`` is an int32 [N_t, F_t] categorical feature matrix;
+    non-categorical features (e.g. CLIP embeddings) go in
+    ``node_features_float[t]`` as float32 [N_t, D_t]. All numpy, on the host.
+    """
+
+    node_features: Dict[str, np.ndarray]
+    edges: Dict[EdgeType, Tuple[np.ndarray, np.ndarray]]  # (src_idx, dst_idx)
+    num_nodes: Dict[str, int]
+    node_features_float: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+
+    def csr(self, edge_type: EdgeType) -> HostCSR:
+        s, d = self.edges[edge_type]
+        return HostCSR.from_edges(s, d, self.num_nodes[edge_type.src], self.num_nodes[edge_type.dst])
+
+    def csr_reverse(self, edge_type: EdgeType) -> HostCSR:
+        s, d = self.edges[edge_type]
+        return HostCSR.from_edges(d, s, self.num_nodes[edge_type.dst], self.num_nodes[edge_type.src])
+
+    def bipartite(self, edge_type: EdgeType, pad_multiple: int = 128,
+                  device="cuda") -> BipartiteGraph:
+        s, d = self.edges[edge_type]
+        return BipartiteGraph.from_edges(
+            s, d, self.num_nodes[edge_type.src], self.num_nodes[edge_type.dst],
+            pad_multiple=pad_multiple, device=device,
+        )
+
+
+def save_hetero_graph(path: str, g: HeteroGraph) -> None:
+    """Persist as a single .npz (the JAX package's keys, so either package
+    reads the other's file)."""
+    payload: Dict[str, np.ndarray] = {}
+    for t, x in g.node_features.items():
+        payload[f"x__{t}"] = x
+    for t, x in g.node_features_float.items():
+        payload[f"xf__{t}"] = x
+    for et, (s, d) in g.edges.items():
+        key = f"{et.src}|{et.rel}|{et.dst}"
+        payload[f"es__{key}"] = s
+        payload[f"ed__{key}"] = d
+    payload["__num_nodes_keys"] = np.array(list(g.num_nodes.keys()))
+    payload["__num_nodes_vals"] = np.array(list(g.num_nodes.values()), dtype=np.int64)
+    np.savez_compressed(path, **payload)
+
+
+def load_hetero_graph(path: str) -> HeteroGraph:
+    with np.load(path, allow_pickle=False) as z:
+        node_features, node_features_float, edges = {}, {}, {}
+        for k in z.files:
+            if k.startswith("x__"):
+                node_features[k[3:]] = z[k]
+            elif k.startswith("xf__"):
+                node_features_float[k[4:]] = z[k]
+            elif k.startswith("es__"):
+                src, rel, dst = k[4:].split("|")
+                edges[EdgeType(src, rel, dst)] = (z[k], z["ed__" + k[4:]])
+        num_nodes = dict(zip([str(s) for s in z["__num_nodes_keys"]],
+                             [int(v) for v in z["__num_nodes_vals"]]))
+    return HeteroGraph(node_features, edges, num_nodes, node_features_float)

@@ -1,13 +1,34 @@
 """Synthetic interaction generators (numpy; the same code as the JAX
-package's ``data/synthetic.py``, so the same seed gives bit-identical edges).
-
-The hetero-graph generators of the JAX module come with the ranking slice.
+package's ``data/synthetic.py``, so the same seed gives bit-identical edges
+and features).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+
+from ..constants import EDGE_KEY
+from .graph import HeteroGraph
+
+
+def manual_dummy_graph() -> HeteroGraph:
+    """The deterministic 3-customer / 6-article graph of the sampler oracle
+    tests: customer 0 buys {0,1,2}, customer 1 buys {2,3,4}, customer 2
+    buys {4,5}."""
+    edges = np.array(
+        [[0, 0], [0, 1], [0, 2], [1, 2], [1, 3], [1, 4], [2, 4], [2, 5]],
+        dtype=np.int64,
+    )
+    users = np.arange(3, dtype=np.int64)
+    items = np.arange(6, dtype=np.int64)
+    user_features = np.stack([users, users % 2], axis=1).astype(np.int32)
+    item_features = np.stack([items, items % 3], axis=1).astype(np.int32)
+    return HeteroGraph(
+        node_features={EDGE_KEY.src: user_features, EDGE_KEY.dst: item_features},
+        edges={EDGE_KEY: (edges[:, 0], edges[:, 1])},
+        num_nodes={EDGE_KEY.src: 3, EDGE_KEY.dst: 6},
+    )
 
 
 def random_bipartite_edges(
@@ -91,6 +112,39 @@ def latent_bipartite_edges(
         items[first].astype(np.int64),
         user_cluster.astype(np.int32),
         item_cluster.astype(np.int32),
+    )
+
+
+def random_hetero_graph(
+    seed: int,
+    num_users: int = 50,
+    num_items: int = 80,
+    avg_degree: float = 4.0,
+    num_user_features: int = 2,
+    num_item_features: int = 2,
+    feature_cardinality: int = 8,
+    num_extra: int = 0,
+) -> HeteroGraph:
+    """Random hetero graph with categorical features. ``num_extra > 0`` adds
+    the colour-group node type with one ``has_color`` edge per item."""
+    rng = np.random.default_rng(seed)
+    eu, ei = random_bipartite_edges(seed, num_users, num_items, avg_degree)
+    uf = rng.integers(0, feature_cardinality, (num_users, num_user_features)).astype(np.int32)
+    itf = rng.integers(0, feature_cardinality, (num_items, num_item_features)).astype(np.int32)
+    node_features = {EDGE_KEY.src: uf, EDGE_KEY.dst: itf}
+    edges = {EDGE_KEY: (eu, ei)}
+    num_nodes = {EDGE_KEY.src: num_users, EDGE_KEY.dst: num_items}
+    if num_extra > 0:
+        from ..constants import EDGE_KEY_EXTRA, NODE_EXTRA
+
+        extra_of_item = rng.integers(0, num_extra, num_items).astype(np.int64)
+        node_features[NODE_EXTRA] = np.arange(num_extra, dtype=np.int32)[:, None]
+        edges[EDGE_KEY_EXTRA] = (
+            np.arange(num_items, dtype=np.int64), extra_of_item
+        )
+        num_nodes[NODE_EXTRA] = num_extra
+    return HeteroGraph(
+        node_features=node_features, edges=edges, num_nodes=num_nodes,
     )
 
 

@@ -4,7 +4,7 @@ package's ``models/lightgcn.py``.
 The model is two embedding tables; the forward pass is the K-hop
 multi-scale diffusion, dispatched on the propagation operand's type, and
 ``bpr_loss`` is the training objective (JAX ``models/lightgcn.py:101-139``).
-The kernel tier differentiates through the self-adjoint loop of
+The kernel and dense tiers differentiate through the self-adjoint loop of
 ``ops/multiscale.py``, the plain tier through ordinary autograd.
 """
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..data.graph import BipartiteGraph
 from ..ops.spmm import lightgcn_propagate
+from ..ops.spmm_dense import DenseAdjacency, lightgcn_propagate_dense
 from ..ops.spmm_pallas import PallasGraph, lightgcn_propagate_pallas
 
 
@@ -82,14 +83,19 @@ def lightgcn_adam_state_from_jax(mu, nu, count: int, device="cuda"):
 
 def lightgcn_forward(
     params: LightGCNParams,
-    graph: Union[BipartiteGraph, PallasGraph],
+    graph: Union[BipartiteGraph, PallasGraph, DenseAdjacency],
     num_iterations: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(users_final, users_0, items_final, items_0) — the contract of the
     reference ``model/lightgcn.py:46-80``. A :class:`PallasGraph` runs the
-    segment-sum kernel; a :class:`BipartiteGraph` the plain tier."""
+    segment-sum kernel, a :class:`DenseAdjacency` the dense tier's bf16
+    products, a :class:`BipartiteGraph` the plain tier."""
     if isinstance(graph, PallasGraph):
         users_final, items_final = lightgcn_propagate_pallas(
+            graph, params.user_emb, params.item_emb, num_iterations
+        )
+    elif isinstance(graph, DenseAdjacency):
+        users_final, items_final = lightgcn_propagate_dense(
             graph, params.user_emb, params.item_emb, num_iterations
         )
     elif isinstance(graph, BipartiteGraph):

@@ -50,6 +50,15 @@ def hierarchical_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch
     return vals, idx.to(torch.int32)
 
 
+def top_k_lowest_first(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries of each row, ties in
+    ascending index order — ``jax.lax.top_k``'s order, which ``torch.topk``
+    does not promise on the card. A stable descending sort of the row; for
+    the ranking stack's short label rows (tens to hundreds of slots)."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def masked_topk(
     scores: torch.Tensor,
     k: int,

@@ -1,10 +1,12 @@
-"""Batch retrieval serving — counterpart of the JAX package's ``serving.py``
-(``RetrievalServer``; ``RankingServer`` comes with the ranking slice).
+"""Batch serving — counterpart of the JAX package's ``serving.py``.
 
-:class:`RetrievalServer` holds user/item embedding tables on the device and
-answers ``recommend(user_ids)`` with exclusion-masked top-k MIPS. Requests
-of any size are cut into one fixed batch shape; the tail batch is padded
-and its pad rows dropped from the answer.
+* :class:`RetrievalServer` holds user/item embedding tables on the device
+  and answers ``recommend(user_ids)`` with exclusion-masked top-k MIPS.
+* :class:`RankingServer` re-ranks matcher candidates: padded subgraph batch
+  (host sampler) → hetero SAGE ``infer`` on the device → top-k item ids.
+
+Requests of any size are cut into one fixed batch shape; the tail batch is
+padded and its pad rows dropped from the answer.
 
 ``quantized=True`` stores the catalog as per-row int8 and retrieves through
 the int8 streaming kernel (kernel C) on the card, or its plain version on
@@ -20,7 +22,9 @@ import torch
 
 from . import resolve_device
 from .data.lightgcn_data import padded_user_items
-from .ops.topk import STREAMING_MAX_BATCH, auto_mips_topk, mips_topk_int8
+from .data.sampler import SubgraphSampler, derive_budgets
+from .models import sage
+from .ops.topk import STREAMING_MAX_BATCH, auto_mips_topk, mips_topk_int8, top_k_lowest_first
 from .ops.topk_pallas import exclusion_mask, row_quantize, streaming_mips_topk_int8
 
 QUANTIZED_TILE = 2048  # catalog rows are padded to a multiple of this
@@ -156,3 +160,106 @@ class RetrievalServer:
             out_items[s:e] = idx.cpu().numpy()[: e - s]
             out_scores[s:e] = vals.cpu().numpy()[: e - s]
         return out_items, out_scores
+
+
+class RankingServer:
+    """Matcher candidates → hetero SAGE scoring → top-k per user (JAX
+    ``serving.py:264-388``; the reference's ``run_submission.py:48-69`` flow
+    as a service). Runs on the device of ``data``'s tables."""
+
+    def __init__(
+        self,
+        cfg,
+        data,                      # LinkPredData (serving split = "test")
+        params: "sage.SageModel",
+        bn_state: dict,
+        split: str = "test",
+        exclude_seen: bool = True,
+    ):
+        """``exclude_seen`` (default) masks EVERY already-interacted item of
+        the split, which is what a server must do. ``False`` reproduces the
+        reference's submission filter exactly (``run_submission.py:60-66``
+        keeps label-0 edges only) — including its quirk that positives no
+        matcher proposed re-enter the candidate set with label 0."""
+        self.cfg = cfg
+        self.data = data
+        self.params = params
+        self.bn_state = bn_state
+        self.device = data.device
+        adj = data.splits[split]
+        if exclude_seen:
+            csr = adj.user_csr
+            self._seen, self._seen_count = padded_user_items(
+                np.arange(data.num_users, dtype=np.int32),
+                np.repeat(np.arange(data.num_users, dtype=np.int64),
+                          np.asarray(csr.degrees, np.int64)),
+                csr.cols.astype(np.int64),
+            )
+        else:
+            self._seen = self._seen_count = None
+        max_deg = max(int(a.user_csr.degrees.max(initial=1)) for a in data.splits.values())
+        budgets = derive_budgets(
+            cfg, max_deg, max(len(m) for m in data.matchers.values()),
+            num_users=data.num_users, num_items=data.num_items,
+        )
+        self.sampler = SubgraphSampler(
+            cfg, adj.user_csr, adj.item_csr, train=False,
+            matchers=data.matchers[split], seed=0, budgets=budgets,
+        )
+
+    @torch.no_grad()
+    def _infer_topk(self, batch, seen, seen_count, k: int):
+        d = self.data
+        scores = sage.infer(
+            self.params, self.bn_state, batch, d.user_features, d.item_features, self.cfg,
+            user_features_float=d.user_features_float, item_features_float=d.item_features_float,
+            item_extra_ids=d.item_extra_ids, extra_features=d.extra_features,
+        )
+        pad = torch.full_like(scores, sage.INFER_PAD)
+        # candidates only: positives are already interacted → excluded
+        scores = torch.where(batch.label > 0, pad, scores)
+        if seen is not None:
+            # strict serving mode: drop anything the user interacted with,
+            # even label-0 XOR re-entries
+            valid_seen = torch.arange(seen.shape[1], device=seen.device)[None, :] < seen_count[:, None]
+            seen = torch.where(valid_seen, seen, torch.full_like(seen, -1))
+            hit = (batch.label_item_global[:, :, None] == seen[:, None, :]).any(-1)
+            scores = torch.where(hit, pad, scores)
+        # ties in ascending slot order, as jax.lax.top_k: pad slots all hold
+        # INFER_PAD and are masked below, so only real ties depend on it
+        vals, pos = top_k_lowest_first(scores, k)
+        items = torch.gather(batch.label_item_global, 1, pos)
+        valid = torch.gather(batch.label_mask, 1, pos) & (vals > sage.INFER_PAD / 2)
+        return torch.where(valid, items, torch.full_like(items, -1)), vals
+
+    def recommend(self, user_ids: Sequence[int], k: Optional[int] = None) -> np.ndarray:
+        """Top-k candidate item ids per user ([N, k], -1 pads rows whose
+        candidate pool ran short — including cold users with no interactions
+        in the serving split, who get all -1)."""
+        k = self.cfg.k if k is None else int(k)
+        users = np.asarray(user_ids, np.int64)
+        n = len(users)
+        b = self.cfg.batch_size
+        out = np.full((n, k), -1, np.int32)
+        # the candidate grid is budgets.labels_per_user wide; top-k cannot
+        # ask for more
+        k_run = min(k, self.sampler.budgets.labels_per_user)
+        # cold users (no interactions in this split) cannot be sampled: the
+        # positive draw needs degree ≥ 1; they answer -1
+        warm_mask = self.sampler.users.degrees[users] > 0
+        warm_pos = np.nonzero(warm_mask)[0]
+        warm_users = users[warm_mask]
+        dev = self.device
+        for s in range(0, len(warm_users), b):
+            e = min(s + b, len(warm_users))
+            chunk = warm_users[s:e]
+            if e - s < b:
+                chunk = np.concatenate([chunk, np.full(b - (e - s), chunk[-1])])
+            batch = self.sampler.sample_batch(chunk, valid_rows=e - s).to(dev)
+            seen = seen_count = None
+            if self._seen is not None:
+                seen = torch.from_numpy(self._seen[chunk]).to(dev)
+                seen_count = torch.from_numpy(self._seen_count[chunk]).to(dev)
+            items, _ = self._infer_topk(batch, seen, seen_count, k_run)
+            out[warm_pos[s:e], :k_run] = items.cpu().numpy()[: e - s]
+        return out

@@ -55,16 +55,35 @@ def uses_bf16_gather(graph: BipartiteGraph) -> bool:
     return max(graph.num_users, graph.num_items) >= BF16_GATHER_ROWS
 
 
-def select_propagation(cfg: LightGCNConfig, graph: BipartiteGraph):
-    """Propagation operand for ``lightgcn_forward`` (``cfg.propagation``).
+def maybe_dense(cfg: LightGCNConfig, graph: BipartiteGraph):
+    """The single-device operand ``auto`` takes (JAX ``:60-73``): the dense
+    tier where Ã and Ãᵀ fit ``cfg.dense_bytes_budget``, else kernel A's
+    operand in the gather mode of the JAX blocked tier (``uses_bf16_gather``),
+    else (no edges) the graph itself."""
+    from ..ops.spmm_dense import DenseAdjacency, dense_fits
+    from ..ops.spmm_pallas import PallasGraph
 
-    ``plain`` is the numerical reference (``index_add_``); ``pallas`` and
-    ``blocked`` — two TPU layouts of one contraction — both map onto the
-    segment-sum kernel, ``blocked`` in the bf16-gather mode where the JAX
-    package's blocked tier takes it (``uses_bf16_gather``). ``auto`` takes
-    the blocked tier's operand on the card (the dense tier is not ported
-    yet); on the CPU the plain tier, unless the bf16 rule holds, since the
-    bf16 mode computes another function."""
+    if cfg.dense_bytes_budget and dense_fits(
+        graph.num_users, graph.num_items, cfg.dense_bytes_budget
+    ):
+        return DenseAdjacency.from_graph(graph)
+    if graph.num_edges > 0:
+        return PallasGraph.from_graph(graph, width=cfg.hidden_layer_size,
+                                      gather_bf16=uses_bf16_gather(graph))
+    return graph
+
+
+def select_propagation(cfg: LightGCNConfig, graph: BipartiteGraph):
+    """Propagation operand for ``lightgcn_forward`` (``cfg.propagation``,
+    JAX ``:76-122``).
+
+    ``plain`` is the numerical reference (``index_add_``); ``dense`` the
+    dense tier; ``pallas`` and ``blocked`` — two TPU layouts of one
+    contraction — both map onto the segment-sum kernel, ``blocked`` in the
+    bf16-gather mode where the JAX package's blocked tier takes it
+    (``uses_bf16_gather``). ``auto`` follows the JAX rule on the card and on
+    the CPU alike (:func:`maybe_dense`)."""
+    from ..ops.spmm_dense import DenseAdjacency
     from ..ops.spmm_pallas import PallasGraph
 
     mode = getattr(cfg, "propagation", "auto")
@@ -74,20 +93,17 @@ def select_propagation(cfg: LightGCNConfig, graph: BipartiteGraph):
     if mode == "pallas":
         return PallasGraph.from_graph(graph, width=width)
     if mode == "dense":
-        raise NotImplementedError(
-            "propagation='dense' is not ported yet: the dense tier comes in a "
-            "later slice; use 'auto', 'pallas', 'blocked' or 'plain'"
-        )
+        return DenseAdjacency.from_graph(graph)
     if mode == "sharded":
         raise NotImplementedError(
             "propagation='sharded' comes with the multi-GPU slice"
         )
-    if mode not in ("auto", "blocked"):
+    if mode == "blocked":
+        return PallasGraph.from_graph(graph, width=width,
+                                      gather_bf16=uses_bf16_gather(graph))
+    if mode != "auto":
         raise ValueError(f"unknown propagation mode {mode!r}")
-    bf16 = uses_bf16_gather(graph)
-    if mode == "auto" and graph.device.type != "cuda" and not bf16:
-        return graph
-    return PallasGraph.from_graph(graph, width=width, gather_bf16=bf16)
+    return maybe_dense(cfg, graph)
 
 
 def _user_row_ptr(g: BipartiteGraph) -> torch.Tensor:

@@ -43,6 +43,8 @@ def test_package_imports_no_jax():
         "             or n.startswith('laplace_gnn_recommendation_tpu.'))\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
+        "from laplace_gnn_recommendation_tpu_torch import native\n"
+        "assert not native._state  # the sampler library builds at first use\n"
         "print('ok', len(sys.modules))\n"
     )
     r = _run(code)
@@ -73,6 +75,28 @@ def _train_on_default_device():
     return train(_cfg(), _cpu_data(), export=False, log_fn=lambda *_: None)
 
 
+def _ranking_cfg():
+    from laplace_gnn_recommendation_tpu_torch.configs import Config
+
+    return Config(epochs=1, batch_size=4, num_neighbors=4, n_hop_neighbors=1,
+                  hidden_layer_size=4, encoder_layer_output_size=4, k=2)
+
+
+def _ranking_on_default_device(what):
+    from laplace_gnn_recommendation_tpu_torch.data.link_pred_data import create_link_pred_data
+    from laplace_gnn_recommendation_tpu_torch.data.synthetic import random_hetero_graph
+    from laplace_gnn_recommendation_tpu_torch.models import sage
+    from laplace_gnn_recommendation_tpu_torch.train.encdec_pipeline import run_pipeline
+
+    g = random_hetero_graph(seed=0, num_users=12, num_items=9, avg_degree=3)
+    if what == "create_link_pred_data":
+        return create_link_pred_data(g, _ranking_cfg())
+    if what == "init_sage_params":
+        return sage.init_sage_params(_ranking_cfg(), sage.get_feature_info(g))
+    data = create_link_pred_data(g, _ranking_cfg(), device="cpu")
+    return run_pipeline(_ranking_cfg(), data, log_fn=lambda *_: None)
+
+
 ENTRY_POINTS = {
     "BipartiteGraph.from_edges": lambda: __import__(
         "laplace_gnn_recommendation_tpu_torch.data.graph", fromlist=["x"]
@@ -93,6 +117,16 @@ ENTRY_POINTS = {
     "make_train_step": lambda: __import__(
         "laplace_gnn_recommendation_tpu_torch.train.lightgcn_pipeline", fromlist=["x"]
     ).make_train_step(_cfg(), _cpu_data().train_graph, 1),
+    "create_link_pred_data": lambda: _ranking_on_default_device("create_link_pred_data"),
+    "init_sage_params": lambda: _ranking_on_default_device("init_sage_params"),
+    "run_pipeline": lambda: _ranking_on_default_device("run_pipeline"),
+    "sage_params_from_jax": lambda: __import__(
+        "laplace_gnn_recommendation_tpu_torch.models.sage", fromlist=["x"]
+    ).sage_params_from_jax({"embeddings": {}, "convs": [], "decoder": []}, {}),
+    "HeteroGraph.bipartite": lambda: __import__(
+        "laplace_gnn_recommendation_tpu_torch.data.synthetic", fromlist=["x"]
+    ).random_hetero_graph(0, 4, 3).bipartite(__import__(
+        "laplace_gnn_recommendation_tpu_torch.constants", fromlist=["x"]).EDGE_KEY),
     "RetrievalServer.quantized": lambda: __import__(
         "laplace_gnn_recommendation_tpu_torch.serving", fromlist=["x"]
     ).RetrievalServer(np.zeros((3, 2)), np.zeros((4, 2)), k=2, quantized=True),

@@ -34,6 +34,7 @@ from laplace_gnn_recommendation_tpu_torch.models.lightgcn import (
 )
 from laplace_gnn_recommendation_tpu_torch.ops import spmm_pallas as tsp
 from laplace_gnn_recommendation_tpu_torch.ops.spmm import propagate_bipartite
+from laplace_gnn_recommendation_tpu_torch.ops.spmm_dense import DenseAdjacency
 from laplace_gnn_recommendation_tpu_torch.train.lightgcn_pipeline import (
     BF16_GATHER_ROWS,
     select_propagation,
@@ -192,7 +193,7 @@ def test_lightgcn_forward_matches_jax(operand):
 
 @pytest.mark.parametrize("mode,kind", [
     ("plain", BipartiteGraph), ("pallas", tsp.PallasGraph),
-    ("blocked", tsp.PallasGraph), ("auto", BipartiteGraph),
+    ("blocked", tsp.PallasGraph), ("auto", DenseAdjacency), ("dense", DenseAdjacency),
 ])
 def test_select_propagation_modes(mode, kind):
     _, tg = _graph_pair(2, 10, 8, 30)
@@ -201,14 +202,16 @@ def test_select_propagation_modes(mode, kind):
 
 @pytest.mark.parametrize("num_edges", [30, 0])
 def test_select_propagation_auto_picks_kernel_on_card(monkeypatch, num_edges):
-    """On a card graph ``auto`` always takes kernel A, an edgeless one too."""
+    """On a card graph too large for the dense budget ``auto`` takes kernel
+    A; an edgeless one stays the graph itself, as in the JAX ``maybe_dense``."""
     _, tg = _graph_pair(2, 10, 8, num_edges)
     monkeypatch.setattr(type(tg), "device", property(lambda self: torch.device("cuda")))
     monkeypatch.setattr(tsp.PallasGraph, "from_graph", staticmethod(lambda g, **kw: "kernel A"))
-    assert select_propagation(LightGCNConfig(propagation="auto"), tg) == "kernel A"
+    op = select_propagation(LightGCNConfig(propagation="auto", dense_bytes_budget=0), tg)
+    assert op == ("kernel A" if num_edges else tg)
 
 
-@pytest.mark.parametrize("mode", ["dense", "sharded"])
+@pytest.mark.parametrize("mode", ["sharded"])
 def test_select_propagation_unported_modes_raise(mode):
     _, tg = _graph_pair(2, 10, 8, 30)
     with pytest.raises(NotImplementedError, match="slice"):
@@ -267,10 +270,11 @@ def test_bf16_rule_matches_jax(users, items):
 @pytest.mark.parametrize("rows", [BF16_GATHER_ROWS - 1, BF16_GATHER_ROWS])
 @pytest.mark.parametrize("mode", ["pallas", "blocked", "auto", "plain"])
 def test_select_propagation_bf16_flag(monkeypatch, mode, rows):
-    """``blocked`` and ``auto`` take the bf16-gather mode exactly where the
-    rule holds, ``pallas`` never; ``plain`` stays the f32 reference. No plan
-    is built at that size."""
-    stub = SimpleNamespace(num_users=rows, num_items=7, device=torch.device("cpu"))
+    """``blocked`` and ``auto`` (past the dense budget) take the bf16-gather
+    mode exactly where the rule holds, ``pallas`` never; ``plain`` stays the
+    f32 reference. No plan is built at that size."""
+    stub = SimpleNamespace(num_users=rows, num_items=7, num_edges=1,
+                           device=torch.device("cpu"))
     seen = {}
 
     def fake_from_graph(g, **kw):
@@ -278,9 +282,9 @@ def test_select_propagation_bf16_flag(monkeypatch, mode, rows):
         return "kernel A"
 
     monkeypatch.setattr(tsp.PallasGraph, "from_graph", staticmethod(fake_from_graph))
-    op = select_propagation(LightGCNConfig(propagation=mode), stub)
+    op = select_propagation(LightGCNConfig(propagation=mode, dense_bytes_budget=0), stub)
     bf16 = rows >= BF16_GATHER_ROWS
-    if mode == "plain" or (mode == "auto" and not bf16):
+    if mode == "plain":
         assert op is stub
     else:
         assert op == "kernel A" and seen["width"] == LightGCNConfig().hidden_layer_size
