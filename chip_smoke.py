@@ -19,11 +19,14 @@ on one NVIDIA H100: ``python3 chip_smoke.py`` from the repository root.
    with 3 eligible items, k=1 and 33, D=20 and D=7 (unaligned rows and
    mask) and a catalog that is not 16-byte aligned. Each kernel's time, its
    plain version's time and one PyTorch library call's time (measured here
-   only) are taken with CUDA events, two ways: device time with the host's
-   enqueue hidden (``device_ms``: ``ms`` and ``library_ms`` in the
-   ``kernels`` line) and the calls issued back to back, host work included
-   (``time_ms``: ``call_ms`` and ``library_call_ms``); ``host_ms`` is the
-   host's time to issue one wrapper call.
+   only) are taken two ways: device time with the host's enqueue hidden
+   (``device_ms``: CUDA events over as many calls as keep the launch queue
+   from filling, beside the profiled kernel sum of the same calls, which
+   stands in their place where the two differ by more than 20%; ``ms`` and
+   ``library_ms`` in the ``kernels`` line) and the
+   calls issued back to back, host work included (``time_ms``: ``call_ms``
+   and ``library_call_ms``); ``host_ms`` is the host's time to issue one
+   wrapper call.
 3. Main path at full width: LightGCN defaults (D=32, K=4) over H&M
    cardinalities (1,371,980 users × 104,547 items, ~25M train edges) —
    ``select_propagation`` → ``lightgcn_forward`` through kernel A, a quantized
@@ -71,7 +74,23 @@ on one NVIDIA H100: ``python3 chip_smoke.py`` from the repository root.
    subgraph path and twice on the segment path, and a resume leg.
    These paths launch none of the three kernels: their counters are zeroed
    before each and read after.
-8. Prints a ``{"kernels": [...]}`` JSON line, the card's line, and as the
+8. PinSAGE at ``bench_pinsage.py:28-30``'s width on phase 3's H&M edges
+   (1,371,980 × 104,547; walk length 2, 10 walks, 3 neighbours, 2 layers,
+   hidden 64, batch 512; one constant item feature, as the bench has): the
+   native library must build; walks/s through the native and the Python
+   frontier; ``sample_train_batch`` batches/s; one dense-Adam and one
+   ``sparse_embedding`` step (device and call ms, idle share, peak memory);
+   one batch's gradients bit for bit over two passes, and the margin loss
+   and its gradients against f64 on the CPU; ``embed_all_items`` over the
+   catalog and ``hits_at_k`` on 20,000 users. Then the artifacts path:
+   ml-1m-format files at MovieLens-1M's size → ``preprocess`` →
+   ``run_pinsage_cli`` and a ``train()`` resumed from its checkpoint
+   (files in ``_chip/smoke_movielens/``, removed), and
+   ``create_link_pred_data_from_artifacts`` → ``run_pipeline`` (2 epochs)
+   → ``submission_pipeline`` from its checkpoint, a MAP@12 CSV. Kernels A,
+   B and C launch 0 times on this path (counters zeroed before, read
+   after).
+9. Prints a ``{"kernels": [...]}`` JSON line, the card's line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero; the script needs a CUDA card and the checkout.
@@ -119,7 +138,25 @@ TOL_RANK_LOGITS, TOL_RANK_GRAD = 1e-4, 1e-3
 # test's bound) and against itself on the CPU (f32 sums in another order)
 TOL_DENSE_VS_PLAIN = (2e-3, 2e-2)   # (atol, rtol)
 TOL_DENSE_CPU = 1e-5
+# PinSAGE at bench_pinsage.py:28-30's width; walks/s over 40 native batches
+# and 2 Python ones, sample_train_batch over 20; HITS on 20,000 users
+PIN_CFG = dict(random_walk_length=2, num_random_walks=10, num_neighbors=3, num_layers=2,
+               hidden_dims=64, batch_size=512, lr=3e-4, k=10)
+PIN_NATIVE_BATCHES, PIN_PYTHON_BATCHES, PIN_ASM_BATCHES, PIN_HITS_USERS = 40, 2, 20, 20_000
+# its margin loss on the card against f64 on the CPU: the loss to this share
+# of (1 + |loss|), all gradients as one vector to this share of the
+# reference's L2 norm (a ReLU input or a hinge within f32 rounding of its
+# kink may switch; fresh weights keep that rare)
+TOL_PIN_LOSS, TOL_PIN_GRAD = 1e-5, 1e-4
+# the artifacts path: MovieLens-1M's published size, ranking stack 2 epochs
+ML_USERS, ML_MOVIES, ML_RATINGS, ML_EPOCHS = 6_040, 3_883, 1_000_209, 2
+ML_DIR = os.path.join("_chip", "smoke_movielens")   # files, checkpoints; removed at the end
 WINDOW_SHARES = (0, 0.25, 0.5, 0.75)   # kernel A's window sizes tried, as shares of L2
+# device_ms: launches the timed calls may queue behind the device-side sleep
+# (the card's launch queue takes ~1,000); the event time stands where it is
+# within this share of the profiled kernel sum of the same calls
+LAUNCH_QUEUE = 512
+DEVICE_MS_AGREE = 0.2
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at a 700 W limit)
 PEAK_BYTES_S = 3.35e12
@@ -154,16 +191,44 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps):
-    """(device ms, host ms) of ``fn``, means over ``reps`` calls: device time
-    with the host's own time kept out (a device-side sleep holds the stream
-    while the host enqueues every call, so their kernels then run back to
-    back), and the host's time to issue one call. (``time_ms`` times calls
-    as a caller issues them, host work between launches included.)"""
+def kernel_ms(torch, fn, reps):
+    """(ms, launches) a call of ``fn`` under torch.profiler, means over
+    ``reps`` calls: the sum of its kernels', copies' and sets' own device
+    times, and how many of them it issues."""
+    from torch.profiler import ProfilerActivity, profile
+
     fn()
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if ev.self_device_time_total > 0]
+    return (sum(ev.self_device_time_total for ev in evs) / 1e3 / reps,
+            sum(ev.count for ev in evs) / reps)
+
+
+def device_ms(torch, fn, reps, name="call"):
+    """(device ms, host ms) of ``fn``: device time with the host's own time
+    kept out, and the host's time to issue one call. (``time_ms`` times
+    calls as a caller issues them, host work between launches included.)
+
+    A device-side sleep holds the stream while the host enqueues the calls,
+    so their kernels then run back to back between two events. If the calls
+    issued more launches than the launch queue holds, the host would block
+    before the sleep ends and the events would time the host's pace. So the
+    calls are first profiled (:func:`kernel_ms`: kernel sum and launches a
+    call), and the events time as many of the ``reps`` calls as keep at most
+    ``LAUNCH_QUEUE`` launches queued (at least one). Where the events differ
+    from the kernel sum by more than ``DEVICE_MS_AGREE`` of it (one call
+    that alone overfills the queue, or the gaps between hundreds of small
+    kernels, which the kernel sum leaves out), the kernel sum is the device
+    time. Both are printed."""
+    kernels, launches = kernel_ms(torch, fn, reps)
+    n = max(1, min(reps, int(LAUNCH_QUEUE // max(launches, 1))))
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(reps):
+    for _ in range(n):
         fn()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -171,11 +236,16 @@ def device_ms(torch, fn, reps):
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(4e9 * host_s) + 1_000_000)   # cycles: twice the host time at 2 GHz
     start.record()
-    for _ in range(reps):
+    for _ in range(n):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, host_s * 1e3 / reps
+    events = start.elapsed_time(end) / n
+    agree = abs(events - kernels) <= DEVICE_MS_AGREE * kernels
+    log("device_ms:", json.dumps(dict(
+        name=name, events_ms=events, kernels_ms=kernels, launches_per_call=launches,
+        timed_calls=n, reported="events" if agree else "kernels", host_ms=host_s * 1e3 / n)))
+    return (events if agree else kernels), host_s * 1e3 / n
 
 
 def bound(bytes_moved, ops, peak_ops):
@@ -433,7 +503,7 @@ def train_phase(torch, data, dev, record):
     one_step()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
-    step_dev_ms, step_host_ms = device_ms(torch, one_step, 10)
+    step_dev_ms, step_host_ms = device_ms(torch, one_step, 10, "lightgcn train step")
     step_call_ms = time_ms(torch, one_step, 10)
     # the step's phases, each issued alone on the same inputs
     def sample():
@@ -457,7 +527,7 @@ def train_phase(torch, data, dev, record):
     def adam():
         adam_state[0] = tx.update_(g_fixed, adam_state[0], tparams)
 
-    phases = {name: device_ms(torch, fn, 10)[0] for name, fn in (
+    phases = {name: device_ms(torch, fn, 10, f"lightgcn step phase {name}")[0] for name, fn in (
         ("sampling", sample), ("forward_and_loss", lambda: forward_loss()[1]),
         ("forward_and_backward", forward_backward), ("adam", adam))}
     phases["backward"] = phases["forward_and_backward"] - phases["forward_and_loss"]
@@ -582,7 +652,7 @@ def dense_phase(torch, dev, record):
 
     timing = {}
     for name, op in (("dense", dense), ("kernel_a_f32", kernel_a), ("plain", graph)):
-        d_ms, h_ms = device_ms(torch, fwd(op), 10)
+        d_ms, h_ms = device_ms(torch, fwd(op), 10, f"ML-1M forward {name}")
         timing[name] = dict(device_ms=d_ms, host_ms=h_ms, call_ms=time_ms(torch, fwd(op), 10))
     max_deg = int(graph.user_deg.max())
     step, tx = make_train_step(cfg, graph, max_deg, prop_graph=dense, device=dev)
@@ -599,7 +669,7 @@ def dense_phase(torch, dev, record):
     step_launches = dict(_build.launches)
     if not bool(torch.isfinite(loss)):
         fail("dense tier: non-finite train-step loss")
-    step_dev, step_host = device_ms(torch, one_step, 10)
+    step_dev, step_host = device_ms(torch, one_step, 10, "ML-1M dense train step")
     out = dict(
         users=nu, items=ni, train_edges=int(graph.num_edges), data_s=t_data,
         dense_build_s=t_build,
@@ -706,7 +776,8 @@ def ranking_phase(torch, dev, record):
     out["step_start_bytes"] = base_mem
     if not bool(torch.isfinite(loss0)):
         fail("ranking train step: non-finite loss")
-    out["step_device_ms"], out["step_host_ms"] = device_ms(torch, one_step, 10)
+    out["step_device_ms"], out["step_host_ms"] = device_ms(torch, one_step, 10,
+                                                            "ranking train step")
     out["step_call_ms"] = time_ms(torch, one_step, 10)
     tr = trace(torch, one_step)
     out["step_trace"] = dict(wall_ms=tr["wall_ms"], device_busy_ms=tr["device_busy_ms"],
@@ -882,6 +953,282 @@ def ranking_phase(torch, dev, record):
     return out
 
 
+def write_movielens(raw_dir, seed=0):
+    """ml-1m-format ``users.dat``, ``movies.dat`` and ``ratings.dat`` at
+    MovieLens-1M's published size (6,040 users, 3,883 movies, 1,000,209
+    ratings, at least 20 a user), with the structure of
+    ``tests/test_acceptance_movielens.py``'s files: each user prefers one
+    genre and draws 80% of its ratings from the movies that carry it.
+    Timestamps interleave the users, as the real files do."""
+    rng = np.random.default_rng(seed)
+    genres = ["Action", "Adventure", "Animation", "Children's", "Comedy", "Crime",
+              "Documentary", "Drama", "Fantasy", "Film-Noir", "Horror", "Musical", "Mystery",
+              "Romance", "Sci-Fi", "Thriller", "War", "Western"]
+    ng = len(genres)
+    os.makedirs(raw_dir, exist_ok=True)
+    ages = (1, 18, 25, 35, 45, 50, 56)
+    with open(os.path.join(raw_dir, "users.dat"), "w") as f:
+        for u in range(1, ML_USERS + 1):
+            f.write(f"{u}::{'FM'[u % 2]}::{ages[u % 7]}::{u % 21}::{10000 + u * 7919 % 90000}\n")
+    movie_ids = np.arange(1, ML_MOVIES + 1)
+    with open(os.path.join(raw_dir, "movies.dat"), "w") as f:
+        for i in movie_ids:
+            f.write(f"{i}::Movie {i} ({1919 + i % 82})::{genres[i % ng]}|{genres[(i + 5) % ng]}\n")
+    weights = rng.lognormal(0.0, 0.8, ML_USERS)   # the largest user near ML-1M's 2,314
+    counts = np.minimum(20 + rng.multinomial(ML_RATINGS - 20 * ML_USERS,
+                                             weights / weights.sum()), ML_MOVIES)
+    # what the cap took goes to the users with the most room, in turn
+    room = ML_MOVIES - counts
+    order = np.argsort(-room, kind="stable")
+    before = np.cumsum(room[order]) - room[order]
+    counts[order] += np.clip(ML_RATINGS - int(counts.sum()) - before, 0, room[order])
+    users, movies = [], []
+    for u, n in zip(range(1, ML_USERS + 1), counts):
+        g = u % ng
+        pool = movie_ids[(movie_ids % ng == g) | ((movie_ids + 5) % ng == g)]
+        n_pref = min(int(round(n * 0.8)), len(pool))
+        picks = np.unique(np.concatenate([rng.choice(pool, n_pref, replace=False),
+                                          rng.choice(movie_ids, n - n_pref, replace=False)]))
+        while len(picks) < n:
+            picks = np.unique(np.concatenate([picks, rng.choice(movie_ids, n - len(picks),
+                                                                replace=False)]))
+        users.append(np.full(n, u))
+        movies.append(rng.permutation(picks[:n]))
+    users, movies = np.concatenate(users), np.concatenate(movies)
+    ratings = rng.integers(1, 6, len(users))
+    stamps = 956_703_932 + rng.integers(0, 90_000_000, len(users))
+    with open(os.path.join(raw_dir, "ratings.dat"), "w") as f:
+        f.write("".join(f"{u}::{m}::{r}::{t}\n" for u, m, r, t in zip(
+            users.tolist(), movies.tolist(), ratings.tolist(), stamps.tolist())))
+    return dict(users=ML_USERS, movies=ML_MOVIES, ratings=int(len(users)))
+
+
+def pinsage_phase(torch, dev, record, edges):
+    """Phase 8: PinSAGE at ``bench_pinsage.py``'s width on phase 3's H&M
+    edges, then the artifacts path end to end."""
+    import copy
+
+    from laplace_gnn_recommendation_tpu_torch import _build, native
+    from laplace_gnn_recommendation_tpu_torch.configs import Config, preprocessing_config
+    from laplace_gnn_recommendation_tpu_torch.constants import EDGE_KEY
+    from laplace_gnn_recommendation_tpu_torch.data.etl import LinkPredArtifacts
+    from laplace_gnn_recommendation_tpu_torch.data.graph import HeteroGraph
+    from laplace_gnn_recommendation_tpu_torch.data.link_pred_data import (
+        create_link_pred_data_from_artifacts)
+    from laplace_gnn_recommendation_tpu_torch.data.pinsage_data import (
+        PinSAGESampler, build_pinsage_data)
+    from laplace_gnn_recommendation_tpu_torch.data.preprocess_movielens import preprocess
+    from laplace_gnn_recommendation_tpu_torch.data.splitting import train_test_split_by_time
+    from laplace_gnn_recommendation_tpu_torch.models import pinsage as M
+    from laplace_gnn_recommendation_tpu_torch.train import pinsage_pipeline as pp
+    from laplace_gnn_recommendation_tpu_torch.train.checkpoint import tree_leaves_with_path
+    from laplace_gnn_recommendation_tpu_torch.train.encdec_pipeline import run_pipeline
+    from laplace_gnn_recommendation_tpu_torch.train.submission import submission_pipeline
+
+    out = {}
+    _build.launches.clear()
+    if not native.available():
+        fail("PinSAGE: the native sampler library did not build")
+
+    # ---- the H&M graph as PinSAGE data (bench_pinsage.py: one constant
+    # categorical item feature; the edges' order is taken as time)
+    t0 = time.perf_counter()
+    eu, ei = edges
+    tr, va, te = train_test_split_by_time(eu)
+    g = HeteroGraph(
+        node_features={EDGE_KEY.src: np.zeros((NUM_USERS, 1), np.int32),
+                       EDGE_KEY.dst: np.zeros((NUM_ITEMS, 1), np.int32)},
+        edges={EDGE_KEY: (eu, ei)},
+        num_nodes={EDGE_KEY.src: NUM_USERS, EDGE_KEY.dst: NUM_ITEMS},
+    )
+    data = build_pinsage_data(LinkPredArtifacts(g, tr, va, te, {}, {}))
+    out["data_s"] = time.perf_counter() - t0
+    out["train_edges"] = int(tr.sum())
+    cfg = pp.PinSAGEConfig(**PIN_CFG)
+    skw = dict(random_walk_length=cfg.random_walk_length, num_random_walks=cfg.num_random_walks,
+               num_neighbors=cfg.num_neighbors, num_layers=cfg.num_layers)
+
+    # ---- walks/s, native and Python frontiers (bench_pinsage.run)
+    rng = np.random.default_rng(0)
+    for path, n_batches in (("native", PIN_NATIVE_BATCHES), ("python", PIN_PYTHON_BATCHES)):
+        s = PinSAGESampler(data, batch_size=cfg.batch_size, seed=1,
+                           use_native=path == "native", **skw)
+        if s.path != path:
+            fail(f"PinSAGE sampler took the {s.path} path, not the {path} one")
+        s.neighbor_frontier(rng.integers(0, NUM_ITEMS, cfg.batch_size))
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            s.neighbor_frontier(rng.integers(0, NUM_ITEMS, cfg.batch_size))
+        out[f"walks_per_s_{path}"] = n_batches * cfg.batch_size * cfg.num_random_walks / (
+            time.perf_counter() - t0)
+    sampler = PinSAGESampler(data, batch_size=cfg.batch_size, seed=2, **skw)
+    sampler.sample_train_batch()
+    t0 = time.perf_counter()
+    for _ in range(PIN_ASM_BATCHES):
+        sampler.sample_train_batch()
+    out["train_batches_per_s"] = PIN_ASM_BATCHES / (time.perf_counter() - t0)
+    log("pinsage sampling:", json.dumps(out))
+
+    # ---- one dense-Adam step and one sparse_embedding step
+    item_features = torch.from_numpy(data.item_features.astype(np.int64)).to(dev)
+    host_batch = sampler.sample_train_batch()
+    b0 = host_batch.to(dev)
+    masks = (host_batch.blocks[0].src_mask, host_batch.blocks[-1].dst_mask)
+    out["batch_slots"] = dict(src=int(b0.blocks[0].src_ids.shape[0]),
+                              valid_src=int(masks[0].sum()), pairs=int(host_batch.pair_mask.sum()))
+    steps = {}
+    for mode in ("dense", "sparse"):
+        mcfg = dataclasses.replace(cfg, sparse_embedding=mode == "sparse")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = M.init_pinsage_params(NUM_ITEMS, [0], cfg.hidden_dims, cfg.num_layers,
+                                       generator=gen, device=dev)
+        step, _ = pp.make_train_step(mcfg, params, item_features, None, gen)
+
+        def one_step():
+            return step(b0, *masks)
+
+        one_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        loss = one_step()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(loss)):
+            fail(f"PinSAGE {mode} step: non-finite loss")
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        d_ms, h_ms = device_ms(torch, one_step, 10, f"pinsage {mode} train step")
+        tr_ = trace(torch, one_step)
+        steps[mode] = dict(device_ms=d_ms, host_ms=h_ms, call_ms=time_ms(torch, one_step, 10),
+                           idle_share=tr_["device_idle_share"], wall_ms=tr_["wall_ms"],
+                           kernel_ms=tr_["device_busy_ms"], peak_bytes_above_start=peak,
+                           start_bytes=base, by_kind=kernel_categories(tr_["top"]))
+        log(f"pinsage {mode} step:", json.dumps(steps[mode]))
+    out["steps"] = steps
+
+    # ---- one batch's gradients twice (bit for bit), and against f64 on the CPU
+    def grads(model, batch, itf, seed):
+        for p_ in model.parameters():
+            p_.grad = None
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=itf.device).manual_seed(seed)
+        loss = M.margin_loss(model, batch, itf, None, train=seed is not None, generator=gen)
+        loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in tree_leaves_with_path(M.grad_tree(model))}
+
+    a = grads(params, b0, item_features, 11)
+    b = grads(params, b0, item_features, 11)
+    repeat = all(torch.equal(a[1][k], b[1][k]) for k in a[1]) and torch.equal(a[0], b[0])
+    out["grads_repeat"] = repeat
+    if not repeat:
+        fail("PinSAGE: one batch's gradients differ between two identical passes")
+    # fresh weights: the timed steps above trained these on one batch
+    fresh = M.init_pinsage_params(NUM_ITEMS, [0], cfg.hidden_dims, cfg.num_layers,
+                                  generator=torch.Generator(device=dev).manual_seed(7),
+                                  device=dev)
+    loss32, g32 = grads(fresh, b0, item_features, None)
+    ref = copy.deepcopy(fresh).to("cpu", torch.float64)
+    loss64, g64 = grads(ref, host_batch.to("cpu"), item_features.cpu(), None)
+    g_all = torch.cat([g32[k].cpu().double().flatten() for k in sorted(g64)])
+    r_all = torch.cat([g64[k].flatten() for k in sorted(g64)])
+    out["f64_check"] = dict(
+        loss=float(loss32), loss_f64=float(loss64), loss_abs_err=abs(float(loss32) - float(loss64)),
+        loss_tol=TOL_PIN_LOSS * (1 + abs(float(loss64))),
+        grad_rel_l2_err=float((g_all - r_all).norm() / r_all.norm()), grad_tol=TOL_PIN_GRAD,
+        grad_max_abs_err=float((g_all - r_all).abs().max()), grad_largest=float(r_all.abs().max()))
+    log("pinsage f64 check:", json.dumps(out["f64_check"]))
+    chk = out["f64_check"]
+    if not (abs(float(loss32) - float(loss64)) <= chk["loss_tol"]
+            and chk["grad_rel_l2_err"] <= TOL_PIN_GRAD):
+        fail(f"PinSAGE margin loss or gradients differ from f64 on the CPU: {chk}")
+    del ref, fresh, g64, g32, a, b
+
+    # ---- embed_all_items over the catalog, hits_at_k on 20,000 users
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_item = pp.embed_all_items(cfg, params, data, sampler, item_features, None)
+    out["embed_all_items_s"] = time.perf_counter() - t0
+    if h_item.shape != (NUM_ITEMS, cfg.hidden_dims) or not np.isfinite(h_item).all():
+        fail("embed_all_items: bad output")
+    t0 = time.perf_counter()
+    out["val_hits_at_10_random_weights"] = pp.hits_at_k(data, h_item, cfg.k, "val",
+                                                        user_cap=PIN_HITS_USERS, device=dev)
+    out["hits_at_k_s"] = time.perf_counter() - t0
+    out["hits_users"] = PIN_HITS_USERS
+    out["launches"] = dict(_build.launches)
+    log("pinsage:", json.dumps({k: v for k, v in out.items() if k != "steps"}))
+    del data, sampler, params, b0, item_features, h_item
+
+    # ---- the artifacts path: raw ml-1m files -> preprocess -> PinSAGE (and a
+    # resumed leg); -> the ranking stack -> a submission CSV
+    e2e = {}
+    shutil.rmtree(ML_DIR, ignore_errors=True)
+    raw, art = os.path.join(ML_DIR, "raw"), os.path.join(ML_DIR, "derived")
+    t0 = time.perf_counter()
+    e2e["raw"] = write_movielens(raw)
+    e2e["write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # every rating, not the shipped config's first 10,000
+    a = preprocess(dataclasses.replace(preprocessing_config, data_size=None), raw, art)
+    e2e["preprocess_s"] = time.perf_counter() - t0
+    e2e["graph"] = dict(a.graph.num_nodes, edges=int(len(a.graph.edges[EDGE_KEY][0])))
+    ckpt = os.path.join(ML_DIR, "pinsage")
+    t0 = time.perf_counter()
+    cli = pp.run_pinsage_cli(art, checkpoint_dir=ckpt, device=dev)
+    e2e["run_pinsage_cli"] = dict(wall_s=time.perf_counter() - t0, loss=cli["loss"],
+                                  val_hits=cli["val_hits"], test_hits=cli["test_hits"],
+                                  epochs_done=cli["epochs_done"])
+    logs = []
+    t0 = time.perf_counter()
+    resumed = pp.train(pp.PinSAGEConfig(num_epochs=3, batches_per_epoch=200),
+                       build_pinsage_data(a), log_fn=lambda m: logs.append(str(m)),
+                       checkpoint_dir=ckpt, device=dev)
+    e2e["resumed_leg"] = dict(wall_s=time.perf_counter() - t0, loss=resumed["loss"],
+                              val_hits=resumed["val_hits"], test_hits=resumed["test_hits"],
+                              log=logs)
+    if not (cli["completed"] and np.isfinite(cli["loss"]) and 0 <= cli["test_hits"] <= 1):
+        fail(f"run_pinsage_cli: {e2e['run_pinsage_cli']}")
+    if not (any("[resume] from epoch 2" in m for m in logs) and resumed["completed"]
+            and resumed["epochs_done"] == 3 and np.isfinite(resumed["loss"])):
+        fail(f"PinSAGE: the resumed leg did not continue from epoch 2: {e2e['resumed_leg']}")
+    rcfg = Config(**RANK_CFG, epochs=ML_EPOCHS, eval_every=1, save_model=True, save_every=0.5)
+    model_dir = os.path.join(ML_DIR, "model")
+    t0 = time.perf_counter()
+    rdata, artifacts = create_link_pred_data_from_artifacts(art, rcfg, device=dev)
+    stats = run_pipeline(rcfg, rdata, model_dir=model_dir, log_fn=lambda *_: None, device=dev)
+    e2e["run_pipeline"] = dict(wall_s=time.perf_counter() - t0, loss_curve=stats.loss_curve,
+                               test_recall_at_12=stats.recall_test,
+                               test_precision_at_12=stats.precision_test,
+                               truncations=stats.truncations)
+    t0 = time.perf_counter()
+    csv = submission_pipeline(rcfg, rdata, artifacts.customer_id_map_forward,
+                              artifacts.article_id_map_forward, model_dir=model_dir,
+                              out_path=os.path.join(ML_DIR, "submission.csv"))
+    e2e["submission_s"] = time.perf_counter() - t0
+    with open(csv) as f:
+        lines = f.read().strip().split("\n")
+    raw_users = set(map(str, range(1, ML_USERS + 1)))
+    raw_movies = set(map(str, range(1, ML_MOVIES + 1)))
+    rows = [line.split(",") for line in lines[1:]]
+    filled = sum(len(p.split()) for _, p in rows)
+    e2e["submission"] = dict(rows=len(rows), predictions=filled, k=rcfg.k)
+    e2e["launches"] = dict(_build.launches)
+    log("pinsage artifacts path:", json.dumps(e2e))
+    curve = stats.loss_curve
+    if len(curve) != ML_EPOCHS or not np.isfinite(curve).all():
+        fail(f"artifacts path run_pipeline: loss curve {curve}")
+    if lines[0] != "customer_id,prediction" or not rows or filled == 0 or any(
+            c not in raw_users or len(p.split()) > rcfg.k
+            or not set(p.split()) <= raw_movies for c, p in rows):
+        fail(f"submission CSV malformed: {lines[:3]}")
+    shutil.rmtree(ML_DIR, ignore_errors=True)
+    out["artifacts_path"] = e2e
+    if any(out["launches"].values()) or any(e2e["launches"].values()):
+        fail(f"the PinSAGE path launched kernels: {out['launches']} {e2e['launches']}")
+    record["pinsage"] = out
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -933,6 +1280,7 @@ def main() -> int:
     # ---- data (host) ------------------------------------------------------
     t0 = time.perf_counter()
     eu, ei = random_bipartite_edges(0, NUM_USERS, NUM_ITEMS, AVG_DEGREE, POPULARITY_ALPHA)
+    hm_edges = (eu, ei)   # phase 8 takes them again
     t_edges = time.perf_counter() - t0
     t0 = time.perf_counter()
     # the 80/10/10 split (seed 1): one graph per split on the card, eval sets
@@ -1043,7 +1391,7 @@ def main() -> int:
         a_time[f"{mode}_step"] = time_ms(torch, lambda: sp.propagate_pallas(
             pg, params.user_emb, params.item_emb), 10)
         a_time[f"{mode}_step_device"], _ = device_ms(torch, lambda: sp.propagate_pallas(
-            pg, params.user_emb, params.item_emb), 10)
+            pg, params.user_emb, params.item_emb), 10, f"kernel A step {mode}")
         a_time[f"{mode}_plain_step"] = time_ms(torch, lambda: (
             sp.pallas_segment_sum_plain(pg.to_user, params.item_emb, pg.gather_bf16),
             sp.pallas_segment_sum_plain(pg.to_item, params.user_emb, pg.gather_bf16)), 3)
@@ -1152,12 +1500,13 @@ def main() -> int:
             nbytes = b * users.shape[1] * 4 + i * (qi.shape[1] + 4) + \
                 (b * i if mask is not None else 0) + b * k * 8
             bnd = bound(nbytes, 2 * b * i * users.shape[1], PEAK_INT8_S)
-        dev_ms, host_ms = device_ms(torch, run, 10)
+        dev_ms, host_ms = device_ms(torch, run, 10, f"{kind} B={b} I={i} k={k}")
         row = dict(kernel=kind, B=b, I=i, k=k, masked=mask is not None, max_abs_err=err,
                    call_ms=time_ms(torch, run, 10), device_ms=dev_ms, host_ms=host_ms,
                    plain_ms=time_ms(torch, plain, 3),
                    library_call_ms=None if lib is None else time_ms(torch, lib, 10),
-                   library_device_ms=None if lib is None else device_ms(torch, lib, 10)[0],
+                   library_device_ms=None if lib is None else device_ms(
+                       torch, lib, 10, f"library {kind} B={b} I={i} k={k}")[0],
                    bound_ms=bnd[0], bound_by=bnd[1])
         log(f"topk: {json.dumps(row)}")
         detail.append(row)
@@ -1363,9 +1712,14 @@ def main() -> int:
     training = train_phase(torch, data, dev, record)
     del data, graph, prop, params
 
-    # ---- 6. the dense tier; 7. the ranking stack ----------------------------
+    # ---- 6. the dense tier; 7. the ranking stack; 8. PinSAGE ----------------
     dense_phase(torch, dev, record)
     ranking_phase(torch, dev, record)
+    pinsage = pinsage_phase(torch, dev, record, hm_edges)
+    del hm_edges
+
+    def pinsage_launches(key):
+        return pinsage["launches"].get(key, 0) + pinsage["artifacts_path"]["launches"].get(key, 0)
 
     kern["segsum"]["launches"] = launches["segsum"]
     kern["segsum"].update(
@@ -1377,6 +1731,7 @@ def main() -> int:
         train_grad_max_abs_err={k: v["max_abs_err"] for k, v in training["grad_check"].items()},
         train_grad_tol=f"{TOL_GRAD_F32} (f32) / {TOL_GRAD_BF16} (bf16) of the largest entry",
         max_abs_err_odd_widths=a_err_odd,
+        pinsage_launches=pinsage_launches("segsum"),
     )
 
     def timed(row, prefix=""):
@@ -1397,6 +1752,7 @@ def main() -> int:
         max_abs_err_odd_widths=b_err_odd,
         per=f"B={BIG_B} I={BIG_I} k=12 masked",
         **timed(b_k256, "k256_"), k256_per="B=256 I=104547 k=256 masked",
+        pinsage_launches=pinsage_launches("topk_f32"),
     )
     kern["topk_int8"] = dict(
         name="topk_int8", route="cuda", source="laplace_gnn_recommendation_tpu_torch/csrc/topk.cu",
@@ -1406,6 +1762,7 @@ def main() -> int:
         per=f"B=256 I={serve_i} k=12 masked",
         **timed(c_k256, "k256_"), k256_per="B=256 I=104547 k=256 masked",
         by_k_ms={k_c: c_by_k[k_c]["device_ms"] for k_c in sorted(c_by_k)},
+        pinsage_launches=pinsage_launches("topk_int8"),
     )
     record["kernels"] = list(kern.values())
     log(json.dumps({"kernels": record["kernels"]}))

@@ -18,7 +18,11 @@ K-hop propagation (segment-sum kernel), top-k retrieval (f32 and int8
 streaming kernels), eval metrics, artifact export and ``RetrievalServer``
 — and LightGCN training: BPR sampling on the device, ``bpr_loss``, the
 self-adjoint backward through the segment-sum kernel, Adam under the
-staircase decay, checkpoint/resume and the ``train`` loop.
+staircase decay, checkpoint/resume and the ``train`` loop; the dense tier and
+the heterogeneous SAGE ranking stack (sampler, model, training,
+``RankingServer``); PinSAGE (random-walk sampler, model, lazy sparse Adam,
+training with HITS@k) and the artifacts path (ETL, MovieLens
+preprocessing, training from artifacts, the submission writer).
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from .graph import BipartiteGraph
+from ..constants import EDGE_KEY
+from .graph import BipartiteGraph, HeteroGraph
 from .splitting import random_edge_split
 
 
@@ -131,3 +132,14 @@ def create_lightgcn_data(
     data.val_set = build_eval_set(val_edges, [train_edges])
     data.test_set = build_eval_set(test_edges, [train_edges, val_edges])
     return data
+
+
+def lightgcn_data_from_hetero(g: HeteroGraph, **kw) -> LightGCNData:
+    """Build from the preprocessed hetero graph's ``buys`` edge set (the
+    reference loads ``test_graph.pt`` and flattens it to homogeneous,
+    ``data/lightgcn_loader.py:55-61``); ``kw`` go to
+    :func:`create_lightgcn_data` (``device=`` among them)."""
+    s, d = g.edges[EDGE_KEY]
+    return create_lightgcn_data(
+        s, d, g.num_nodes[EDGE_KEY.src], g.num_nodes[EDGE_KEY.dst], **kw
+    )

@@ -6,8 +6,7 @@ Per cumulative split (train ⊂ train+val ⊂ train+val+test) a pair of host CSR
 adjacencies feeding the subgraph sampler, matchers for the eval splits, and
 the full feature tables, held once as tensors on the device.
 
-Not ported yet: ``create_link_pred_data_from_artifacts`` (ETL artifacts) and
-the graph-store sampler; they come with the periphery.
+Not ported yet: the graph-store sampler; it comes with the periphery.
 """
 from __future__ import annotations
 
@@ -118,6 +117,56 @@ def create_link_pred_data(
         num_extra=num_extra,
         extra_features=_tensor(extra_feats, np.int64, dev),
     )
+
+
+def create_link_pred_data_from_artifacts(
+    artifact_dir: str, cfg: Config, device="cuda",
+) -> Tuple[LinkPredData, "LinkPredArtifacts"]:
+    """Load preprocessed artifacts and build the data bundle on ``device``
+    with the saved split masks (preprocess and train as separate processes,
+    the reference's ``data/derived`` hand-off; JAX ``:147-195``)."""
+    from .etl import load_artifacts
+
+    dev = resolve_device(device)
+    a = load_artifacts(artifact_dir)
+    eu, ei = a.graph.edges[EDGE_KEY]
+    eu = np.asarray(eu, np.int64)
+    ei = np.asarray(ei, np.int64)
+    num_users = a.graph.num_nodes[EDGE_KEY.src]
+    num_items = a.graph.num_nodes[EDGE_KEY.dst]
+    cum = {
+        "train": a.train_mask,
+        "val": a.train_mask | a.val_mask,
+        "test": a.train_mask | a.val_mask | a.test_mask,
+    }
+    splits = {
+        name: SplitAdjacency(
+            user_csr=HostCSR.from_edges(eu[m], ei[m], num_users, num_items),
+            item_csr=HostCSR.from_edges(ei[m], eu[m], num_items, num_users),
+        )
+        for name, m in cum.items()
+    }
+    matchers = {
+        name: get_matchers(
+            cfg.matchers, cfg.candidate_pool_size,
+            splits[name].user_csr, splits[name].item_csr,
+            popular_items=a.popular_items,
+        )
+        for name in ("val", "test")
+    }
+    g = a.graph
+    data = LinkPredData(
+        num_users=num_users,
+        num_items=num_items,
+        user_features=_tensor(g.node_features[EDGE_KEY.src], np.int64, dev),
+        item_features=_tensor(g.node_features[EDGE_KEY.dst], np.int64, dev),
+        splits=splits,
+        matchers=matchers,
+        graph=g,
+        user_features_float=_tensor(g.node_features_float.get(EDGE_KEY.src), np.float32, dev),
+        item_features_float=_tensor(g.node_features_float.get(EDGE_KEY.dst), np.float32, dev),
+    )
+    return data, a
 
 
 def _extract_extra(g: HeteroGraph, num_items: int):

@@ -82,21 +82,25 @@ class SubgraphBatch:
         memory with a non-blocking copy, so the upload queues behind the
         device's work instead of waiting for it."""
         dev = torch.device(device)
-        pin = dev.type == "cuda"
-
-        def move(a):
-            if isinstance(a, torch.Tensor):
-                return a.to(dev, non_blocking=pin)
-            a = np.asarray(a)
-            if a.dtype.kind in "iu":
-                a = a.astype(np.int64)
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if pin:
-                t = t.pin_memory()
-            return t.to(dev, non_blocking=pin)
-
-        return SubgraphBatch(**{f.name: move(getattr(self, f.name))
+        return SubgraphBatch(**{f.name: array_to(getattr(self, f.name), dev)
                                 for f in dataclasses.fields(self)})
+
+
+def array_to(a, dev: torch.device) -> torch.Tensor:
+    """A host array (or a tensor) as a tensor on ``dev``, integers as int64.
+    For the card it goes through pinned host memory with a non-blocking
+    copy, so the upload queues behind the device's work instead of waiting
+    for it."""
+    pin = dev.type == "cuda"
+    if isinstance(a, torch.Tensor):
+        return a.to(dev, non_blocking=pin)
+    a = np.asarray(a)
+    if a.dtype.kind in "iu":
+        a = a.astype(np.int64)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if pin:
+        t = t.pin_memory()
+    return t.to(dev, non_blocking=pin)
 
 
 @dataclass

@@ -48,6 +48,9 @@ from ..configs import Config, embedding_size_for_cardinality
 from ..constants import NODE_EXTRA, NODE_ITEM, NODE_USER
 from ..data.graph import HeteroGraph
 from ..data.sampler import SubgraphBatch
+from ..ops.sorted_sum import SegmentSum as _SegmentSum
+from ..ops.sorted_sum import SumPlan as _SumPlan
+from ..ops.sorted_sum import gather_rows as _rows
 from ..types import FeatureInfo
 
 INFER_PAD = -float(1 << 50)  # reference model/encoder_decoder.py:164
@@ -148,35 +151,16 @@ def jax_tree(params: SageModel) -> dict:
 
 def grad_tree(params: SageModel) -> dict:
     """The ``.grad`` of every parameter, in the JAX tree layout."""
-    from ..train.checkpoint import tree_map_with_path
+    from ..train.checkpoint import tree_grads
 
-    grads = {id(p): p.grad for p in params.parameters()}
-
-    def leaf(_, view):
-        base = view if view._base is None else view._base
-        g = grads[id(base)]
-        if g is None:
-            g = torch.zeros_like(base)
-        return g.t() if view._base is not None else g
-
-    return tree_map_with_path(leaf, jax_tree(params))
+    return tree_grads(jax_tree(params))
 
 
-@torch.no_grad()
 def load_jax_tree_(params: SageModel, tree) -> SageModel:
     """Copy a JAX-layout tree (numpy arrays or tensors) into the module."""
-    from ..train.checkpoint import tree_leaves_with_path
+    from ..train.checkpoint import copy_tree_
 
-    src = dict(tree_leaves_with_path(tree))
-    for key, view in tree_leaves_with_path(jax_tree(params)):
-        if key not in src:
-            raise KeyError(f"params tree has no leaf {key}")
-        x = src[key]
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.array(x, np.float32))
-        if tuple(x.shape) != tuple(view.shape):
-            raise ValueError(f"{key}: shape {tuple(x.shape)}, model has {tuple(view.shape)}")
-        view.copy_(x)
+    copy_tree_(jax_tree(params), tree)
     return params
 
 
@@ -288,83 +272,6 @@ def sage_params_from_jax(params, bn_state, device="cuda") -> Tuple[SageModel, di
           for t, s in bn_state.items()}
     return model, bn
 
-
-PIECE_ROWS = 32   # rows one thread of the first summing pass adds up
-
-
-class _SumPlan:
-    """How to add rows of a [len(idx), D] tensor by ``idx`` into [num_rows,
-    D] in a fixed order, so the same inputs give the same bits. The indices
-    are sorted stably; each index's run is cut into pieces of at most
-    ``PIECE_ROWS`` rows, one ``segment_reduce`` sums every piece and a
-    second sums each row's pieces. A run of hundreds of repeats is then no
-    longer one thread's or one warp's serial walk, which took 2-25 ms a
-    call on an H100 (64-value feature tables, popular items' edges), and no
-    float atomics are used. Built once per index tensor: a batch's edge
-    ends serve every layer, forward and backward."""
-
-    def __init__(self, idx: torch.Tensor, num_rows: int):
-        self.idx = idx.reshape(-1)
-        self.num_rows = num_rows
-        n, dev = self.idx.shape[0], self.idx.device
-        sorted_idx, self.order = torch.sort(self.idx, stable=True)
-        counts = torch.searchsorted(sorted_idx, torch.arange(num_rows + 1, device=dev)).diff()
-        pieces = (counts + PIECE_ROWS - 1) // PIECE_ROWS
-        # piece slots: row r owns [end_r - pieces_r, end_r); m slots bound them all
-        m = n // PIECE_ROWS + num_rows
-        end = torch.cumsum(pieces, 0)
-        slot = torch.arange(m, device=dev)
-        row = torch.searchsorted(end, slot, right=True).clamp_max(num_rows - 1)
-        first = slot - (end - pieces)[row]
-        self.lengths = torch.where(
-            slot < end[-1], torch.clamp(counts[row] - first * PIECE_ROWS, 0, PIECE_ROWS), 0)
-        # one extra segment takes the unused slots, and is dropped
-        self.per_row = torch.cat([pieces, (m - end[-1]).reshape(1)])
-
-    def sum(self, values: torch.Tensor) -> torch.Tensor:
-        v = values.reshape(self.order.shape[0], values.shape[-1]).index_select(0, self.order)
-        partial = torch.segment_reduce(v, "sum", lengths=self.lengths, unsafe=True)
-        out = torch.segment_reduce(partial, "sum", lengths=self.per_row, unsafe=True)
-        return out[: self.num_rows]
-
-
-class _Rows(torch.autograd.Function):
-    """``table[idx]`` whose backward is a :class:`_SumPlan` sum of the
-    gradient (``table[idx]``'s own backward walks each run of repeats in one
-    warp)."""
-
-    @staticmethod
-    def forward(ctx, table, idx, plan):
-        ctx.save_for_backward(idx)
-        ctx.num_rows, ctx.plan = table.shape[0], plan
-        return table.index_select(0, idx.reshape(-1)).view(*idx.shape, table.shape[1])
-
-    @staticmethod
-    def backward(ctx, grad):
-        (idx,) = ctx.saved_tensors
-        plan = ctx.plan if ctx.plan is not None else _SumPlan(idx, ctx.num_rows)
-        return plan.sum(grad), None, None
-
-
-class _SegmentSum(torch.autograd.Function):
-    """A :class:`_SumPlan` sum with the gather as its backward (``index_add``
-    sums in the order of its float atomics, which changes from run to run
-    on the card)."""
-
-    @staticmethod
-    def forward(ctx, values, plan):
-        ctx.plan = plan
-        return plan.sum(values)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad.index_select(0, ctx.plan.idx), None
-
-
-def _rows(table: torch.Tensor, idx: torch.Tensor, plan: Optional[_SumPlan] = None):
-    """``table[idx]`` for a 2-D ``table`` that takes a gradient; ``plan``, a
-    :class:`_SumPlan` of ``idx`` over the table's rows, if one is built."""
-    return _Rows.apply(table, idx, plan)
 
 
 def _embed_features(tables, x: torch.Tensor) -> torch.Tensor:

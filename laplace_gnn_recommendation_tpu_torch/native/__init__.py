@@ -8,9 +8,9 @@ build it; the sampler then runs its Python path and says so. ctypes releases
 the GIL for the length of every call, which is what lets
 ``data.sampler.parallel_epoch_batches`` overlap its worker threads.
 
-Bound here: ``nhop_sample``, ``assemble_train_batch`` and
-``common_items_matches`` (JAX ``native/__init__.py:178-300``); PinSAGE's
-entry points come with its slice.
+Bound here: ``nhop_sample``, ``assemble_train_batch``,
+``common_items_matches``, ``pinsage_frontier`` and ``walk_step`` (JAX
+``native/__init__.py:178-342``).
 """
 from __future__ import annotations
 
@@ -98,6 +98,20 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32p, i32p, i32p, i32p,
         i32p, i32p, i64p, i64p, ctypes.c_int64,
         i64p,
+    ]
+    lib.pinsage_frontier.restype = None
+    lib.pinsage_frontier.argtypes = [
+        i64p, i32p, i64p, i32p,
+        i32p, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_double,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_uint64,
+        i32p, f32p,
+    ]
+    lib.walk_step.restype = None
+    lib.walk_step.argtypes = [
+        i64p, i32p, i64p, i32p,
+        i32p, ctypes.c_int64, ctypes.c_uint64, i32p,
     ]
 
 
@@ -273,3 +287,43 @@ def common_items_matches(
         users, len(users), int(k), out,
     )
     return out
+
+
+def pinsage_frontier(
+    user_row_ptr, user_cols, item_row_ptr, item_cols,
+    seeds: np.ndarray, walk_length: int, restart_prob: float,
+    num_walks: int, num_neighbors: int, rng_seed: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """PinSAGE random-walk frontier: (src, dst, weights), int64 / int64 /
+    f32, each seed's ``num_neighbors`` most-visited items with their visit
+    counts, zero-weight pads removed."""
+    handle = _require()
+    seeds = np.ascontiguousarray(seeds, np.int32)
+    n = len(seeds)
+    out_src = np.empty(n * num_neighbors, np.int32)
+    out_w = np.empty(n * num_neighbors, np.float32)
+    handle.pinsage_frontier(
+        *_csr_args(user_row_ptr, user_cols, item_row_ptr, item_cols),
+        seeds, n, int(walk_length), float(restart_prob), int(num_walks), int(num_neighbors),
+        np.uint64(rng_seed & 0xFFFFFFFFFFFFFFFF),
+        out_src, out_w,
+    )
+    dst = np.repeat(seeds.astype(np.int64), num_neighbors)
+    keep = out_w > 0
+    return out_src[keep].astype(np.int64), dst[keep], out_w[keep]
+
+
+def walk_step(
+    user_row_ptr, user_cols, item_row_ptr, item_cols,
+    items: np.ndarray, rng_seed: int,
+) -> np.ndarray:
+    """One item→user→item step per item, int64; dead ends and negative
+    items give -1."""
+    handle = _require()
+    items = np.ascontiguousarray(items, np.int32)
+    out = np.empty(len(items), np.int32)
+    handle.walk_step(
+        *_csr_args(user_row_ptr, user_cols, item_row_ptr, item_cols),
+        items, len(items), np.uint64(rng_seed & 0xFFFFFFFFFFFFFFFF), out,
+    )
+    return out.astype(np.int64)

@@ -56,6 +56,34 @@ def tree_clone(tree):
         lambda _, x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
 
 
+def tree_grads(tree):
+    """The ``.grad`` of every leaf of a tree of parameters and transposed
+    views of them (a model's JAX-layout tree): a view gives its parameter's
+    gradient transposed; a parameter without one gives zeros."""
+    def leaf(_, view):
+        base = view if view._base is None else view._base
+        g = base.grad if base.grad is not None else torch.zeros_like(base)
+        return g.t() if view._base is not None else g
+
+    return tree_map_with_path(leaf, tree)
+
+
+@torch.no_grad()
+def copy_tree_(tree, src) -> None:
+    """Copy ``src`` (a tree of numpy arrays or tensors with the same keys)
+    into the leaves of ``tree`` (parameters and views of them)."""
+    values = dict(tree_leaves_with_path(src))
+    for key, view in tree_leaves_with_path(tree):
+        if key not in values:
+            raise KeyError(f"params tree has no leaf {key}")
+        x = values[key]
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.array(x, np.float32))
+        if tuple(x.shape) != tuple(view.shape):
+            raise ValueError(f"{key}: shape {tuple(x.shape)}, model has {tuple(view.shape)}")
+        view.copy_(x)
+
+
 def _flatten(tree) -> Dict[str, np.ndarray]:
     flat = {}
     for key, leaf in tree_leaves_with_path(tree):

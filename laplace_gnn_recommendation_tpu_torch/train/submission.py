@@ -2,23 +2,23 @@
 ``train/submission.py`` (reference ``run_submission.py:14-96``):
 inference over the test split, ranking only candidate (label-0) edges per
 user, top-k article ids, mapped back to raw ids, written as
-``submission.csv`` with columns ``customer_id, prediction``.
-
-``submission_pipeline``, which reads the ETL artifacts, comes with the
-periphery slice.
+``submission.csv`` with columns ``customer_id, prediction``;
+``submission_pipeline`` loads the newest checkpoint or takes the params it
+is given.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..configs import Config
-from ..data.link_pred_data import LinkPredData
+from ..data.link_pred_data import LinkPredData, create_samplers
 from ..models import sage
 from ..ops.topk import top_k_lowest_first
+from .checkpoint import load_latest
 
 
 def make_predictions(
@@ -78,3 +78,49 @@ def save_csv(path: str, customers: list, preds: list) -> None:
         f.write("customer_id,prediction\n")
         for c, p in zip(customers, preds):
             f.write(f"{c},{p}\n")
+
+
+def submission_pipeline(
+    cfg: Config,
+    data: LinkPredData,
+    customer_id_map_forward: Dict[str, object],
+    article_id_map_forward: Dict[str, object],
+    model_dir: str = "model/saved",
+    out_path: str = "data/derived/submission.csv",
+    params_bn: Optional[Tuple] = None,
+    mesh=None,
+) -> str:
+    """The whole submission flow (reference ``run_submission.py:78-92``) on the
+    device of ``data``'s tables. ``params_bn=(params, bn_state)`` skips the
+    checkpoint (right after training in the same process); otherwise the
+    newest ``model_dir/model_<n>.npz`` is loaded, one the JAX pipeline wrote
+    too. Returns the CSV's path."""
+    if mesh is not None:
+        raise NotImplementedError("a multi-device mesh comes with the multi-GPU slice")
+    if params_bn is None:
+        print("| Loading Model...")
+        params, bn_state = sage.init_sage_params(
+            cfg, sage.get_feature_info(data.graph), float_dims=data.float_dims(),
+            num_extra=data.num_extra, device=data.device,
+        )
+        state, ver = load_latest(model_dir, {"params": sage.jax_tree(params),
+                                             "bn_state": bn_state})
+        if ver is None:
+            raise FileNotFoundError(f"no checkpoint under {model_dir}")
+        sage.load_jax_tree_(params, state["params"])
+        bn_state = state["bn_state"]
+    else:
+        params, bn_state = params_bn
+
+    print("| Building test sampler...")
+    _, _, test_sampler = create_samplers(cfg, data)
+
+    print("| Making Predictions...")
+    preds = make_predictions(cfg, params, bn_state, data, test_sampler)
+
+    print("| Mapping to raw ids...")
+    customers, pred_strs = map_to_raw_ids(preds, customer_id_map_forward, article_id_map_forward)
+
+    print("| Saving predictions...")
+    save_csv(out_path, customers, pred_strs)
+    return out_path

@@ -97,6 +97,30 @@ def _ranking_on_default_device(what):
     return run_pipeline(_ranking_cfg(), data, log_fn=lambda *_: None)
 
 
+def _pinsage_data():
+    from laplace_gnn_recommendation_tpu_torch.constants import EDGE_KEY
+    from laplace_gnn_recommendation_tpu_torch.data.etl import LinkPredArtifacts
+    from laplace_gnn_recommendation_tpu_torch.data.pinsage_data import build_pinsage_data
+    from laplace_gnn_recommendation_tpu_torch.data.splitting import train_test_split_by_time
+    from laplace_gnn_recommendation_tpu_torch.data.synthetic import random_hetero_graph
+
+    g = random_hetero_graph(seed=0, num_users=12, num_items=9, avg_degree=3)
+    tr, va, te = train_test_split_by_time(g.edges[EDGE_KEY][0])
+    return build_pinsage_data(LinkPredArtifacts(g, tr, va, te, {}, {}))
+
+
+def _pinsage_on_default_device(what):
+    from laplace_gnn_recommendation_tpu_torch.models import pinsage
+    from laplace_gnn_recommendation_tpu_torch.train import pinsage_pipeline as pp
+
+    if what == "init_pinsage_params":
+        return pinsage.init_pinsage_params(9, [3], 4, 1)
+    if what == "hits_at_k":
+        return pp.hits_at_k(_pinsage_data(), np.zeros((9, 4), np.float32), 2)
+    return pp.train(pp.PinSAGEConfig(num_epochs=1, batches_per_epoch=1), _pinsage_data(),
+                    log_fn=lambda *_: None)
+
+
 ENTRY_POINTS = {
     "BipartiteGraph.from_edges": lambda: __import__(
         "laplace_gnn_recommendation_tpu_torch.data.graph", fromlist=["x"]
@@ -127,6 +151,16 @@ ENTRY_POINTS = {
         "laplace_gnn_recommendation_tpu_torch.data.synthetic", fromlist=["x"]
     ).random_hetero_graph(0, 4, 3).bipartite(__import__(
         "laplace_gnn_recommendation_tpu_torch.constants", fromlist=["x"]).EDGE_KEY),
+    "init_pinsage_params": lambda: _pinsage_on_default_device("init_pinsage_params"),
+    "pinsage_params_from_jax": lambda: __import__(
+        "laplace_gnn_recommendation_tpu_torch.models.pinsage", fromlist=["x"]
+    ).pinsage_params_from_jax({"proj": {"tables": [], "id_table": np.zeros((3, 2))},
+                               "convs": [], "bias": np.zeros(3)}),
+    "pinsage_pipeline.hits_at_k": lambda: _pinsage_on_default_device("hits_at_k"),
+    "pinsage_pipeline.train": lambda: _pinsage_on_default_device("train"),
+    "create_link_pred_data_from_artifacts": lambda: __import__(
+        "laplace_gnn_recommendation_tpu_torch.data.link_pred_data", fromlist=["x"]
+    ).create_link_pred_data_from_artifacts("no-such-dir", _ranking_cfg()),
     "RetrievalServer.quantized": lambda: __import__(
         "laplace_gnn_recommendation_tpu_torch.serving", fromlist=["x"]
     ).RetrievalServer(np.zeros((3, 2)), np.zeros((4, 2)), k=2, quantized=True),
@@ -139,6 +173,29 @@ def test_entry_points_default_to_the_card(name):
         pytest.skip("a card is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name]()
+
+
+def test_native_pinsage_bindings_need_no_card():
+    """The PinSAGE frontier and walk step are host code: they import and run
+    without a card (and without building anything at import)."""
+    code = (
+        "import numpy as np\n"
+        "from laplace_gnn_recommendation_tpu_torch import native\n"
+        "assert not native._state\n"
+        "assert callable(native.pinsage_frontier) and callable(native.walk_step)\n"
+        "if native.available():\n"
+        "    ptr = np.array([0, 2, 3], np.int64); cols = np.array([0, 1, 1], np.int32)\n"
+        "    iptr = np.array([0, 1, 3], np.int64); icols = np.array([0, 0, 1], np.int32)\n"
+        "    src, dst, w = native.pinsage_frontier(ptr, cols, iptr, icols, np.array([0, 1]),\n"
+        "                                          2, 0.5, 10, 3, 1)\n"
+        "    assert src.dtype == dst.dtype == np.int64 and (w > 0).all()\n"
+        "    out = native.walk_step(ptr, cols, iptr, icols, np.array([0, -1, 1]), 2)\n"
+        "    assert out.dtype == np.int64 and out[1] == -1 and (out[[0, 2]] >= 0).all()\n"
+        "import sys; assert 'jax' not in sys.modules\n"
+        "print('ok')\n"
+    )
+    r = _run(code, env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
 
 
 def test_wrappers_refuse_other_devices():
