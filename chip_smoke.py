@@ -90,7 +90,30 @@ on one NVIDIA H100: ``python3 chip_smoke.py`` from the repository root.
    → ``submission_pipeline`` from its checkpoint, a MAP@12 CSV. Kernels A,
    B and C launch 0 times on this path (counters zeroed before, read
    after).
-9. Prints a ``{"kernels": [...]}`` JSON line, the card's line, and as the
+9. The multi-GPU path (``parallel/``), on the one card. (a) One NCCL rank
+   in this process (a world of one): a 1×1 mesh with
+   ``propagation="sharded"`` on phase 5's H&M train graph (D=32, K=4):
+   one forward through the per-shard plans, held against the unsharded
+   kernel A f32 forward (bitwise) and against kernel A's plain version;
+   the device ms of both forwards and of one sharded train step
+   (``TRAIN_CFG``; 16 launches of kernel A, its backward on the shard's
+   transposed plans). (b) Two spawned processes sharing the card over gloo
+   (NCCL refuses two ranks on one card), a 1×2 mesh: ``train()`` at
+   ``movielens_like_edges(seed=0)`` (6,040 × 3,706, D=32, K=4, 30 steps,
+   batch 2,048) against the same run in one process on kernel A's f32
+   tier (loss within 1e-4, recall@12 and precision@12 equal);
+   ``RetrievalServer(mesh=)`` for 1,000 users against the unsharded
+   server (ids equal); then a 2×1 mesh, the data-parallel split:
+   ``train()`` as above (loss within 1e-4, recall and precision within
+   1e-9), the ranking stack's ``run_pipeline`` (loss within rel 1e-4,
+   recall and precision within 1e-6) and PinSAGE ``train()`` (loss within
+   rel 1e-4, HITS within 1e-9) at the dry run's sizes, each against one
+   process; ``graft_entry.dryrun_multichip(2)``. Each part's wall and the
+   collectives each rank issued, by backend and tensor device
+   (``collectives.transports``), are printed; kernel A's launches on these paths
+   go into the ``kernels`` line. NCCL between several ranks is not run
+   here: the machine has one card.
+10. Prints a ``{"kernels": [...]}`` JSON line, the card's line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero; the script needs a CUDA card and the checkout.
@@ -151,6 +174,15 @@ TOL_PIN_LOSS, TOL_PIN_GRAD = 1e-5, 1e-4
 # the artifacts path: MovieLens-1M's published size, ranking stack 2 epochs
 ML_USERS, ML_MOVIES, ML_RATINGS, ML_EPOCHS = 6_040, 3_883, 1_000_209, 2
 ML_DIR = os.path.join("_chip", "smoke_movielens")   # files, checkpoints; removed at the end
+# phase 9: the multi-GPU path on one card
+SHARD_ML_CFG = dict(epochs=30, eval_every=10, batch_size=2048)   # LightGCNConfig otherwise
+SHARD_SERVE_USERS = 1_000
+TOL_SHARD_LOSS = 1e-4   # abs, 2 ranks against one process (the JAX test's bound)
+# the data-parallel leg (2×1) against one process, the JAX tests' bounds:
+# LightGCN recall/precision abs; the ranking stack's loss rel, its recall and
+# precision abs; PinSAGE's loss rel, its HITS abs
+TOL_DP_RECALL, TOL_DP_RANK_LOSS, TOL_DP_RANK_RECALL = 1e-9, 1e-4, 1e-6
+TOL_DP_PIN_LOSS, TOL_DP_PIN_HITS = 1e-4, 1e-9
 WINDOW_SHARES = (0, 0.25, 0.5, 0.75)   # kernel A's window sizes tried, as shares of L2
 # device_ms: launches the timed calls may queue behind the device-side sleep
 # (the card's launch queue takes ~1,000); the event time stands where it is
@@ -1229,6 +1261,298 @@ def pinsage_phase(torch, dev, record, edges):
     return out
 
 
+def sharded_phase_a(torch, dev, record, graph, f32_prop):
+    """Phase 9a: one NCCL rank in this process; the sharded tier on a 1×1
+    mesh against the unsharded kernel A f32 tier and against kernel A's
+    plain version, on phase 5's H&M train graph."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from laplace_gnn_recommendation_tpu_torch import _build
+    from laplace_gnn_recommendation_tpu_torch.configs import LightGCNConfig
+    from laplace_gnn_recommendation_tpu_torch.models.lightgcn import init_lightgcn, lightgcn_forward
+    from laplace_gnn_recommendation_tpu_torch.ops import spmm_pallas as sp
+    from laplace_gnn_recommendation_tpu_torch.ops.multiscale import multiscale_loop
+    from laplace_gnn_recommendation_tpu_torch.ops.spmm_sharded import ShardedBipartiteGraph
+    from laplace_gnn_recommendation_tpu_torch.parallel.mesh import build_mesh
+    from laplace_gnn_recommendation_tpu_torch.train.lightgcn_pipeline import (
+        make_train_step, select_propagation)
+
+    t_phase = time.perf_counter()
+    os.makedirs("_chip", exist_ok=True)
+    rdzv = tempfile.mkdtemp(prefix="nccl_", dir="_chip")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.abspath(rdzv)}/r",
+                            world_size=1, rank=0)
+    try:
+        mesh = build_mesh(1, 1, device=dev)
+        cfg = LightGCNConfig(**dict(TRAIN_CFG, propagation="sharded"))
+        k_iter = cfg.num_iterations
+        t0 = time.perf_counter()
+        sg = select_propagation(cfg, graph, mesh)
+        t_plan = time.perf_counter() - t0
+        if not isinstance(sg, ShardedBipartiteGraph):
+            fail(f"propagation='sharded' gave {type(sg).__name__}")
+        gen = torch.Generator(device=dev).manual_seed(21)
+        params = init_lightgcn(NUM_USERS, NUM_ITEMS, cfg.hidden_layer_size, generator=gen,
+                               device=dev)
+        _build.launches.clear()
+        su, _, si, _ = lightgcn_forward(params, sg, k_iter)
+        torch.cuda.synchronize()
+        fwd_launches = _build.launches["segsum"]
+        fu, _, fi, _ = lightgcn_forward(params, f32_prop, k_iter)
+
+        def plain_step(op, eu, ei):
+            return (sp.pallas_segment_sum_plain(op.to_user, ei),
+                    sp.pallas_segment_sum_plain(op.to_item, eu))
+
+        pu, pi = multiscale_loop(plain_step, sg, params.user_emb, params.item_emb, k_iter)
+        bitwise = bool(torch.equal(su, fu) and torch.equal(si, fi))
+        err_unsharded = max(float((su - fu).abs().max()), float((si - fi).abs().max()))
+        err_plain = max(float((su - pu).abs().max()), float((si - pi).abs().max()))
+        del pu, pi
+        if fwd_launches != 2 * k_iter:
+            fail(f"sharded forward: {fwd_launches} kernel A launches, expected {2 * k_iter}")
+        if not err_unsharded <= TOL_SEGSUM[0]:
+            fail(f"sharded forward differs from the unsharded kernel A tier by {err_unsharded}")
+        if not err_plain <= 1e-5:
+            fail(f"sharded forward differs from kernel A's plain version by {err_plain}")
+        fwd_sharded_ms, _ = device_ms(torch, lambda: lightgcn_forward(params, sg, k_iter), 10,
+                                      "sharded 1x1 forward")
+        fwd_f32_ms, _ = device_ms(torch, lambda: lightgcn_forward(params, f32_prop, k_iter), 10,
+                                  "unsharded kernel A f32 forward")
+        del su, si, fu, fi
+
+        max_deg = max(1, int(graph.user_deg.max()))
+        step, tx = make_train_step(cfg, graph, max_deg, prop_graph=sg, device=dev, mesh=mesh)
+        state = [tx.init(params)]
+
+        def one_step():
+            _, state[0], loss = step(params, state[0], gen)
+            return loss
+
+        one_step()
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        loss = one_step()
+        torch.cuda.synchronize()
+        step_launches = _build.launches["segsum"]
+        if step_launches != 4 * k_iter or not bool(torch.isfinite(loss)):
+            fail(f"sharded train step: {step_launches} kernel A launches (expected "
+                 f"{4 * k_iter}), loss {float(loss)}")
+        step_ms, step_host_ms = device_ms(torch, one_step, 10, "sharded 1x1 train step")
+        step_call_ms = time_ms(torch, one_step, 10)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+    out = dict(
+        backend="nccl", world_size=1, mesh="1x1", plan_s=t_plan,
+        forward_launches=fwd_launches, forward_bitwise_equal_unsharded=bitwise,
+        forward_max_abs_err_unsharded=err_unsharded, forward_max_abs_err_plain=err_plain,
+        forward_device_ms=fwd_sharded_ms, unsharded_f32_forward_device_ms=fwd_f32_ms,
+        train_step_launches=step_launches, train_step_device_ms=step_ms,
+        train_step_call_ms=step_call_ms, train_step_host_ms=step_host_ms,
+        wall_s=time.perf_counter() - t_phase,
+    )
+    record["sharded_a"] = out
+    log("phase 9a:", json.dumps(out))
+    return out
+
+
+def _ml_data(dev):
+    from laplace_gnn_recommendation_tpu_torch.data.lightgcn_data import create_lightgcn_data
+    from laplace_gnn_recommendation_tpu_torch.data.synthetic import movielens_like_edges
+
+    eu, ei, nu, ni = movielens_like_edges(seed=0)
+    return create_lightgcn_data(eu, ei, nu, ni, device=dev)
+
+
+def _serve_tables(nu, ni):
+    rng = np.random.default_rng(5)
+    return (rng.normal(size=(nu, 32)).astype(np.float32),
+            rng.normal(size=(ni, 32)).astype(np.float32),
+            np.sort(rng.choice(nu, SHARD_SERVE_USERS, replace=False)))
+
+
+def _dp_surfaces(dev, mesh):
+    """The ranking stack's ``run_pipeline`` and PinSAGE's ``train`` at the
+    dry run's tiny sizes, on ``mesh`` (None: one process on ``dev``):
+    (loss, recall@k, precision@k) and (loss, test HITS)."""
+    from laplace_gnn_recommendation_tpu_torch.configs import Config
+    from laplace_gnn_recommendation_tpu_torch.data.graph import HostCSR
+    from laplace_gnn_recommendation_tpu_torch.data.link_pred_data import create_link_pred_data
+    from laplace_gnn_recommendation_tpu_torch.data.pinsage_data import PinSAGEData
+    from laplace_gnn_recommendation_tpu_torch.data.synthetic import (
+        random_bipartite_edges,
+        random_hetero_graph,
+    )
+    from laplace_gnn_recommendation_tpu_torch.train import encdec_pipeline
+    from laplace_gnn_recommendation_tpu_torch.train import pinsage_pipeline as P
+
+    on = dict(mesh=mesh) if mesh is not None else dict(device=dev)
+    quiet = lambda *_: None  # noqa: E731
+    ecfg = Config(epochs=2, batch_size=8, num_neighbors=8, n_hop_neighbors=2,
+                  hidden_layer_size=16, encoder_layer_output_size=8, k=4,
+                  candidate_pool_size=4, eval_every=1)
+    ldata = create_link_pred_data(random_hetero_graph(seed=1, num_users=48, num_items=40,
+                                                      avg_degree=4), ecfg, device=dev)
+    es = encdec_pipeline.run_pipeline(ecfg, ldata, log_fn=quiet, randomization=False, **on)
+
+    rng = np.random.default_rng(0)
+    nu, ni = 40, 56
+    eu, ei = random_bipartite_edges(seed=9, num_users=nu, num_items=ni, avg_degree=5)
+    latest = np.full(nu, -1, np.int32)
+    for u, i in zip(eu, ei):
+        latest[u] = i
+    val = [ei[np.flatnonzero(eu == u)[:1]].astype(np.int64) for u in range(nu)]
+    pdata = PinSAGEData(
+        num_users=nu, num_items=ni, user_csr=HostCSR.from_edges(eu, ei, nu, ni),
+        item_csr=HostCSR.from_edges(ei, eu, ni, nu),
+        item_features=rng.integers(0, 5, (ni, 2)).astype(np.int32), item_features_float=None,
+        latest_item_per_user=latest, val_items=val, test_items=val)
+    pcfg = P.PinSAGEConfig(num_epochs=1, batches_per_epoch=4, batch_size=8, hidden_dims=8,
+                           num_neighbors=2, k=4, seed=5)
+    pr = P.train(pcfg, pdata, log_fn=quiet, **on)
+    return (es.loss, es.recall_test, es.precision_test), (pr["loss"], pr["test_hits"])
+
+
+def _phase9_rank():
+    """Phase 9b on one of two ranks sharing the card: ``train()`` and
+    ``RetrievalServer(mesh=)`` on a 1×2 mesh, then the data-parallel split
+    on a 2×1 mesh: ``train()`` on kernel A's f32 tier, the ranking stack and
+    PinSAGE."""
+    import torch
+    import torch.distributed as dist
+
+    from laplace_gnn_recommendation_tpu_torch import _build
+    from laplace_gnn_recommendation_tpu_torch.configs import LightGCNConfig
+    from laplace_gnn_recommendation_tpu_torch.parallel import collectives
+    from laplace_gnn_recommendation_tpu_torch.parallel.mesh import build_mesh
+    from laplace_gnn_recommendation_tpu_torch.serving import RetrievalServer
+    from laplace_gnn_recommendation_tpu_torch.train.lightgcn_pipeline import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    mesh = build_mesh(1, 2, device=dev)
+    data = _ml_data(dev)
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    s = train(LightGCNConfig(**SHARD_ML_CFG), data, export=False, log_fn=lambda *_: None,
+              mesh=mesh)
+    t_train = time.perf_counter() - t0
+    train_launches = _build.launches["segsum"]
+    u, it, req = _serve_tables(data.num_users, data.num_items)
+    srv = RetrievalServer(u, it, k=12, exclude_edges=data.train_edges, batch_size=256, mesh=mesh)
+    t0 = time.perf_counter()
+    ids, vals = srv.recommend(req)
+    t_serve = time.perf_counter() - t0
+
+    dp_mesh = build_mesh(2, 1, device=dev)
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    dp = train(LightGCNConfig(**dict(SHARD_ML_CFG, propagation="pallas")), data, export=False,
+               log_fn=lambda *_: None, mesh=dp_mesh)
+    t_dp = time.perf_counter() - t0
+    dp_launches = _build.launches["segsum"]
+    t0 = time.perf_counter()
+    dp_rank, dp_pin = _dp_surfaces(dev, dp_mesh)
+    t_dp_rest = time.perf_counter() - t0
+    return dict(rank=dist.get_rank(), backend=mesh.backend, loss=s.loss,
+                recall_test=s.recall_test, precision_test=s.precision_test,
+                recall_val=s.recall_val, train_s=t_train, train_launches=train_launches,
+                ids=ids, vals=vals, serve_s=t_serve, shard_rows=int(srv.item_emb.shape[0]),
+                dp=dict(loss=dp.loss, recall_test=dp.recall_test,
+                        precision_test=dp.precision_test, recall_val=dp.recall_val,
+                        train_s=t_dp, train_launches=dp_launches, ranking=dp_rank,
+                        pinsage=dp_pin, ranking_pinsage_s=t_dp_rest),
+                transports=dict(collectives.transports))
+
+
+def sharded_phase_b(torch, dev, record):
+    """Phase 9b: two processes on the one card over gloo (mesh 1×2) against
+    one process; then the graft dry run on two ranks."""
+    from laplace_gnn_recommendation_tpu_torch import _build
+    from laplace_gnn_recommendation_tpu_torch.configs import LightGCNConfig
+    from laplace_gnn_recommendation_tpu_torch.graft_entry import dryrun_multichip
+    from laplace_gnn_recommendation_tpu_torch.parallel.spawn import run_ranks
+    from laplace_gnn_recommendation_tpu_torch.serving import RetrievalServer
+    from laplace_gnn_recommendation_tpu_torch.train.lightgcn_pipeline import train
+
+    t_phase = time.perf_counter()
+    data = _ml_data(dev)
+    t0 = time.perf_counter()
+    ref = train(LightGCNConfig(**dict(SHARD_ML_CFG, propagation="pallas")), data,
+                export=False, log_fn=lambda *_: None, device=dev)
+    t_ref = time.perf_counter() - t0
+    u, it, req = _serve_tables(data.num_users, data.num_items)
+    ref_ids, ref_vals = RetrievalServer(u, it, k=12, exclude_edges=data.train_edges,
+                                        batch_size=256, device=dev).recommend(req)
+    ref_rank, ref_pin = _dp_surfaces(dev, None)
+    del data
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(_phase9_rank, 2, backend="gloo", timeout=300)
+    t_ranks = time.perf_counter() - t0
+    for r in ranks:
+        if abs(r["loss"] - ref.loss) > TOL_SHARD_LOSS:
+            fail(f"1x2 train() on rank {r['rank']}: loss {r['loss']} vs one process {ref.loss}")
+        for key in ("recall_test", "precision_test", "recall_val"):
+            if r[key] != getattr(ref, key):
+                fail(f"1x2 train() on rank {r['rank']}: {key} {r[key]} vs {getattr(ref, key)}")
+        if r["train_launches"] <= 0:
+            fail(f"1x2 train() on rank {r['rank']} launched kernel A no time")
+        if not np.array_equal(r["ids"], ref_ids):
+            fail(f"RetrievalServer(mesh=) on rank {r['rank']}: ids differ from one process's")
+    serve_err = max(float(np.abs(r["vals"] - ref_vals).max()) for r in ranks)
+    if not serve_err <= 1e-4:
+        fail(f"RetrievalServer(mesh=) scores differ by {serve_err}")
+    for r in ranks:
+        dp, who = r["dp"], f"2x1 on rank {r['rank']}"
+        if abs(dp["loss"] - ref.loss) > TOL_SHARD_LOSS:
+            fail(f"{who}: train() loss {dp['loss']} vs one process {ref.loss}")
+        for key in ("recall_test", "precision_test", "recall_val"):
+            if abs(dp[key] - getattr(ref, key)) > TOL_DP_RECALL:
+                fail(f"{who}: train() {key} {dp[key]} vs {getattr(ref, key)}")
+        if dp["train_launches"] <= 0:
+            fail(f"{who}: train() launched kernel A no time")
+        (rl, rr, rp), (pl, ph) = dp["ranking"], dp["pinsage"]
+        if not (abs(rl - ref_rank[0]) <= TOL_DP_RANK_LOSS * abs(ref_rank[0])
+                and abs(rr - ref_rank[1]) <= TOL_DP_RANK_RECALL
+                and abs(rp - ref_rank[2]) <= TOL_DP_RANK_RECALL):
+            fail(f"{who}: run_pipeline {dp['ranking']} vs one process {ref_rank}")
+        if not (abs(pl - ref_pin[0]) <= TOL_DP_PIN_LOSS * abs(ref_pin[0])
+                and abs(ph - ref_pin[1]) <= TOL_DP_PIN_HITS):
+            fail(f"{who}: PinSAGE train {dp['pinsage']} vs one process {ref_pin}")
+
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, device="cuda:0", backend="gloo", timeout=300)
+    t_dry = time.perf_counter() - t0
+    if not all(np.isfinite(d[k]) for d in dry for k in ("lightgcn_loss", "encdec_loss",
+                                                        "pinsage_loss")):
+        fail("dryrun_multichip(2): a non-finite loss")
+    out = dict(
+        backend=ranks[0]["backend"], transports=[r["transports"] for r in ranks],
+        world_size=2, meshes=["1x2", "2x1"], ranks_share="cuda:0",
+        one_process=dict(loss=ref.loss, recall_test=ref.recall_test,
+                         precision_test=ref.precision_test, train_s=t_ref,
+                         ranking=ref_rank, pinsage=ref_pin),
+        ranks=[{k: r[k] for k in ("rank", "loss", "recall_test", "precision_test", "train_s",
+                                  "train_launches", "serve_s", "shard_rows", "dp")}
+               for r in ranks],
+        spawn_wall_s=t_ranks, serve_users=SHARD_SERVE_USERS, serve_ids_equal=True,
+        serve_max_abs_err=serve_err, dryrun_wall_s=t_dry,
+        dryrun=[{k: d[k] for k in ("mesh", "lightgcn_loss", "encdec_loss", "pinsage_loss",
+                                   "submission_rows", "graph_store")} for d in dry],
+        wall_s=time.perf_counter() - t_phase,
+    )
+    record["sharded_b"] = out
+    log("phase 9b:", json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1710,13 +2034,19 @@ def main() -> int:
 
     # ---- 5. training --------------------------------------------------------
     training = train_phase(torch, data, dev, record)
-    del data, graph, prop, params
+
+    # ---- 9a. the sharded tier on one NCCL rank, on phase 5's graph ----------
+    sharded_a = sharded_phase_a(torch, dev, record, graph, modes["f32"])
+    del data, graph, prop, params, modes
 
     # ---- 6. the dense tier; 7. the ranking stack; 8. PinSAGE ----------------
     dense_phase(torch, dev, record)
     ranking_phase(torch, dev, record)
     pinsage = pinsage_phase(torch, dev, record, hm_edges)
     del hm_edges
+
+    # ---- 9b. two ranks sharing the card over gloo ---------------------------
+    sharded_b = sharded_phase_b(torch, dev, record)
 
     def pinsage_launches(key):
         return pinsage["launches"].get(key, 0) + pinsage["artifacts_path"]["launches"].get(key, 0)
@@ -1732,6 +2062,14 @@ def main() -> int:
         train_grad_tol=f"{TOL_GRAD_F32} (f32) / {TOL_GRAD_BF16} (bf16) of the largest entry",
         max_abs_err_odd_widths=a_err_odd,
         pinsage_launches=pinsage_launches("segsum"),
+        sharded_launches=dict(
+            forward_1x1=sharded_a["forward_launches"],
+            train_step_1x1=sharded_a["train_step_launches"],
+            train_1x2_30_steps_per_rank=[r["train_launches"] for r in sharded_b["ranks"]],
+            train_2x1_30_steps_per_rank=[r["dp"]["train_launches"] for r in sharded_b["ranks"]],
+        ),
+        sharded_forward_device_ms=sharded_a["forward_device_ms"],
+        sharded_train_step_device_ms=sharded_a["train_step_device_ms"],
     )
 
     def timed(row, prefix=""):
@@ -1764,6 +2102,8 @@ def main() -> int:
         by_k_ms={k_c: c_by_k[k_c]["device_ms"] for k_c in sorted(c_by_k)},
         pinsage_launches=pinsage_launches("topk_int8"),
     )
+    # phase 9's records again here, where the end of the output keeps them
+    log("phase 9:", json.dumps(dict(a=sharded_a, b=sharded_b)))
     record["kernels"] = list(kern.values())
     log(json.dumps({"kernels": record["kernels"]}))
     log(smi)

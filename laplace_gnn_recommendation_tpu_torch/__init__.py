@@ -22,7 +22,11 @@ staircase decay, checkpoint/resume and the ``train`` loop; the dense tier and
 the heterogeneous SAGE ranking stack (sampler, model, training,
 ``RankingServer``); PinSAGE (random-walk sampler, model, lazy sparse Adam,
 training with HITS@k) and the artifacts path (ETL, MovieLens
-preprocessing, training from artifacts, the submission writer).
+preprocessing, training from artifacts, the submission writer); the
+multi-GPU path over ``torch.distributed`` (``parallel/``: a 2-D (data,
+model) mesh with one process per card, row-sharded tables, the sharded
+SpMM through the segment-sum kernel, cross-shard lookups, the distributed
+top-k, sharded checkpoints) and the CLI under ``torchrun``.
 """
 from __future__ import annotations
 

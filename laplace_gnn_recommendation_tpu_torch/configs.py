@@ -1,7 +1,7 @@
 """Experiment configuration system (a copy of the JAX package's
 ``configs.py``; the port keeps every field and default so one config drives
-both packages — ``MeshConfig`` rides along as an inert field until the
-multi-GPU slice).
+both packages; ``MeshConfig`` gives the (data, model) mesh that the
+pipelines build under a multi-rank launch, ``parallel/mesh.py``).
 
 Counterpart of the reference's ``config.py:22-177`` +
 ``run_command.py:8-47``: dataclass configs with validation, printed dumps,

@@ -21,6 +21,7 @@ from ..data.graph import BipartiteGraph
 from ..ops.spmm import lightgcn_propagate
 from ..ops.spmm_dense import DenseAdjacency, lightgcn_propagate_dense
 from ..ops.spmm_pallas import PallasGraph, lightgcn_propagate_pallas
+from ..ops.spmm_sharded import ShardedBipartiteGraph, lightgcn_propagate_sharded
 
 
 @dataclass
@@ -83,14 +84,20 @@ def lightgcn_adam_state_from_jax(mu, nu, count: int, device="cuda"):
 
 def lightgcn_forward(
     params: LightGCNParams,
-    graph: Union[BipartiteGraph, PallasGraph, DenseAdjacency],
+    graph: Union[BipartiteGraph, PallasGraph, DenseAdjacency, ShardedBipartiteGraph],
     num_iterations: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(users_final, users_0, items_final, items_0) — the contract of the
     reference ``model/lightgcn.py:46-80``. A :class:`PallasGraph` runs the
     segment-sum kernel, a :class:`DenseAdjacency` the dense tier's bf16
-    products, a :class:`BipartiteGraph` the plain tier."""
-    if isinstance(graph, PallasGraph):
+    products, a :class:`BipartiteGraph` the plain tier, and a
+    :class:`ShardedBipartiteGraph` the sharded tier on its mesh, with
+    ``params`` and the results this rank's row blocks."""
+    if isinstance(graph, ShardedBipartiteGraph):
+        users_final, items_final = lightgcn_propagate_sharded(
+            graph.mesh, graph, params.user_emb, params.item_emb, num_iterations
+        )
+    elif isinstance(graph, PallasGraph):
         users_final, items_final = lightgcn_propagate_pallas(
             graph, params.user_emb, params.item_emb, num_iterations
         )

@@ -252,15 +252,22 @@ def margin_loss(
     generator: Optional[torch.Generator] = None,
     id_rows: Optional[torch.Tensor] = None,
     bias_rows: Optional[torch.Tensor] = None,
+    rows: Optional[slice] = None,
 ) -> torch.Tensor:
     """Masked mean of (neg − pos + 1)₊ (``model.py:24-28``); positive and
-    negative pairs are scored in one :func:`score_pairs` call."""
+    negative pairs are scored in one :func:`score_pairs` call. With
+    ``rows`` only that slice of the pairs is scored, and the result is its
+    share of the whole batch's mean (a data-parallel step's share)."""
     h = get_repr(params, batch.blocks, item_features, item_features_float, train, generator,
                  id_rows)
-    p = batch.pos_head.shape[0]
+    ph, pt, nh, nt = batch.pos_head, batch.pos_tail, batch.neg_head, batch.neg_tail
+    mask = batch.pair_mask
+    count = torch.clamp_min(torch.sum(mask.to(torch.float32)), 1.0)
+    if rows is not None:
+        ph, pt, nh, nt, mask = ph[rows], pt[rows], nh[rows], nt[rows], mask[rows]
+    p = ph.shape[0]
     s = score_pairs(params, h, batch.blocks[-1].dst_ids,
-                    torch.cat([batch.pos_head, batch.neg_head]),
-                    torch.cat([batch.pos_tail, batch.neg_tail]), bias_rows)
+                    torch.cat([ph, nh]), torch.cat([pt, nt]), bias_rows)
     hinge = torch.clamp_min(s[p:] - s[:p] + 1.0, 0.0)
-    m = batch.pair_mask.to(hinge.dtype)
-    return torch.sum(hinge * m) / torch.clamp_min(torch.sum(m), 1.0)
+    m = mask.to(hinge.dtype)
+    return torch.sum(hinge * m) / count

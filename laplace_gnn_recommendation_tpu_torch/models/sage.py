@@ -27,6 +27,15 @@ JAX package both are plain XLA ops outside any Pallas kernel, and here they
 are library calls. Every sum of floats runs in a fixed order (no float
 atomics), so a step on the same inputs gives the same bits on either path.
 
+On a mesh whose model axis is > 1 (``mesh=``), every categorical feature
+table is padded after init to divide the axis and each rank keeps its row
+block (``init_sage_params``); lookups go through the cross-shard exchange
+(``ops/embedding.sharded_embedding_lookup``). The encoder runs whole on
+every rank, so its BatchNorm statistics are the whole batch's; a
+data-parallel step decodes only its slice of the label grid (``rows=``),
+with the dropout masks drawn for the whole grid and cut, so the slices
+together compute the single-device step.
+
 Weights: JAX stores a linear layer as ``w`` [fan_in, fan_out] applied as
 ``x @ w``; ``nn.Linear`` stores [out, in]. :func:`jax_tree` gives the
 module's tensors in the JAX layout (transposed views of the weights), which
@@ -48,9 +57,11 @@ from ..configs import Config, embedding_size_for_cardinality
 from ..constants import NODE_EXTRA, NODE_ITEM, NODE_USER
 from ..data.graph import HeteroGraph
 from ..data.sampler import SubgraphBatch
+from ..ops.embedding import shard_table, sharded_embedding_lookup
 from ..ops.sorted_sum import SegmentSum as _SegmentSum
 from ..ops.sorted_sum import SumPlan as _SumPlan
 from ..ops.sorted_sum import gather_rows as _rows
+from ..parallel.mesh import model_parts, round_up
 from ..types import FeatureInfo
 
 INFER_PAD = -float(1 << 50)  # reference model/encoder_decoder.py:164
@@ -211,6 +222,7 @@ def init_sage_params(
     num_extra: int = 0,
     generator: Optional[torch.Generator] = None,
     device="cuda",
+    mesh=None,
 ) -> Tuple[SageModel, dict]:
     """(params, bn_state) on ``device`` (JAX ``init_sage_params``): embedding
     tables normal(0, 1), linear layers uniform(±1/sqrt(fan_in)) as
@@ -222,7 +234,12 @@ def init_sage_params(
     ``float_dims[node_type]`` declares non-categorical feature widths, which
     join the encoder input after the embeddings. ``num_extra > 0`` adds the
     colour-group node type (an identity embedding plus ``item↔extra`` convs
-    in every layer)."""
+    in every layer).
+
+    With a ``mesh`` whose model axis is > 1 each table is padded with zero
+    rows to divide the axis after the draws (so the true rows are the
+    unsharded run's; JAX ``:171-188``) and the module holds this rank's row
+    block of it."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -238,6 +255,12 @@ def init_sage_params(
             for p in (lin.weight, lin.bias):
                 if p is not None:
                     p.copy_((torch.rand(p.shape, generator=generator, device=dev) * 2 - 1) * bound)
+    parts = model_parts(mesh)
+    if parts > 1:
+        for tables in model.embeddings.values():
+            for i, t in enumerate(tables):
+                padded = F.pad(t.detach(), (0, 0, 0, round_up(t.shape[0], parts) - t.shape[0]))
+                tables[i] = nn.Parameter(shard_table(mesh, padded))
     return model, _init_bn_state(cfg.encoder_layer_output_size, dev)
 
 
@@ -274,12 +297,19 @@ def sage_params_from_jax(params, bn_state, device="cuda") -> Tuple[SageModel, di
 
 
 
-def _embed_features(tables, x: torch.Tensor) -> torch.Tensor:
+def _embed_features(tables, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Concat per-column embedding lookups with the max_norm=1 renorm of
-    ``nn.Embedding(max_norm=1)`` applied to the looked-up rows only."""
+    ``nn.Embedding(max_norm=1)`` applied to the looked-up rows only. With a
+    ``mesh`` whose model axis is > 1 the tables are row blocks and the
+    lookup is the cross-shard exchange."""
+    parts = model_parts(mesh)
     cols = []
     for i, table in enumerate(tables):
-        rows = _rows(table, torch.clamp(x[:, i], 0, table.shape[0] - 1))
+        ids = torch.clamp(x[:, i], 0, table.shape[0] * parts - 1)
+        if parts > 1:
+            rows = sharded_embedding_lookup(mesh, table, ids)
+        else:
+            rows = _rows(table, ids)
         norm = torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
         cols.append(rows / torch.clamp_min(norm, 1.0))
     return torch.cat(cols, dim=-1)
@@ -349,9 +379,15 @@ def _batch_norm(x, mask, p, state, train: bool, momentum: float = 0.1, eps: floa
     return y * p.scale + p.bias, new_state
 
 
-def _dropout(generator, x, p, train: bool):
+def _dropout(generator, x, p, train: bool, rows: Optional[slice] = None, full_rows: int = 0):
+    """Inverted dropout. With ``rows``, ``x`` is that slice of a tensor of
+    ``full_rows`` rows, and its mask is cut from a mask drawn for the whole."""
     if not train or p is None or p <= 0.0:
         return x
+    if rows is not None:
+        keep = torch.rand((full_rows,) + tuple(x.shape[1:]), generator=generator,
+                          device=x.device)[rows] < (1.0 - p)
+        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
     keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - p)
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
@@ -375,18 +411,20 @@ def encode(
     item_features_float: Optional[torch.Tensor] = None,  # f32 [num_items, Dfi]
     item_extra_ids: Optional[torch.Tensor] = None,       # int [num_items], -1 none
     extra_features: Optional[torch.Tensor] = None,       # int [num_extra, F_e]
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Embeddings + hetero SAGE stack → (z_user, z_item, bn_state) (JAX
     ``encode``). ``batch`` moves to the features' device if it is not there.
     ``generator`` draws the dropout masks in train mode. With
     ``item_extra_ids`` (and params built with ``num_extra > 0``) every
     colour-group node joins the batch and items aggregate over both incoming
-    edge types."""
+    edge types. ``mesh``: the feature tables are row blocks over its model
+    axis (see the module's docstring)."""
     dev = user_features.device
     batch = _on_device(batch, dev)
     extra_active = item_extra_ids is not None and NODE_EXTRA in params.embeddings
-    x_user = _embed_features(params.embeddings[NODE_USER], user_features[batch.user_ids])
-    x_item = _embed_features(params.embeddings[NODE_ITEM], item_features[batch.item_ids])
+    x_user = _embed_features(params.embeddings[NODE_USER], user_features[batch.user_ids], mesh)
+    x_item = _embed_features(params.embeddings[NODE_ITEM], item_features[batch.item_ids], mesh)
     if user_features_float is not None:
         x_user = torch.cat([x_user, user_features_float[batch.user_ids]], dim=-1)
     if item_features_float is not None:
@@ -397,10 +435,10 @@ def encode(
     x_extra = e_of_item = has_extra_edge = None
     if extra_active:
         if extra_features is None:
-            ne = params.embeddings[NODE_EXTRA][0].shape[0]
+            ne = params.embeddings[NODE_EXTRA][0].shape[0] * model_parts(mesh)
             extra_features = torch.arange(ne, device=dev)[:, None]
         ne = extra_features.shape[0]
-        x_extra = _embed_features(params.embeddings[NODE_EXTRA], extra_features)
+        x_extra = _embed_features(params.embeddings[NODE_EXTRA], extra_features, mesh)
         raw_extra = item_extra_ids[batch.item_ids]
         has_extra_edge = batch.item_mask & (raw_extra >= 0)
         e_of_item = torch.clamp(raw_extra, 0, ne - 1)
@@ -499,16 +537,23 @@ def decode(
     cfg: Config,
     train: bool = False,
     generator: Optional[torch.Generator] = None,
+    rows: Optional[slice] = None,
 ) -> torch.Tensor:
-    """MLP edge decoder over the [B, L] label grid → logits [B, L]."""
+    """MLP edge decoder over the [B, L] label grid → logits [B, L]; with
+    ``rows``, over that slice of the grid's rows only (a data-parallel
+    step's share), drawing the same dropout masks as the whole grid."""
     batch = _on_device(batch, z_user.device)
-    z = torch.cat([_rows(z_user, batch.label_src), _rows(z_item, batch.label_dst)], dim=-1)
+    src, dst = batch.label_src, batch.label_dst
+    full_rows = src.shape[0]
+    if rows is not None:
+        src, dst = src[rows], dst[rows]
+    z = torch.cat([_rows(z_user, src), _rows(z_item, dst)], dim=-1)
     n = len(params.decoder)
     with exact_f32_matmul():
         for i, lin in enumerate(params.decoder):
             last = i == n - 1
             if not last:
-                z = _dropout(generator, z, cfg.p_dropout_features, train)
+                z = _dropout(generator, z, cfg.p_dropout_features, train, rows, full_rows)
             z = lin(z)
             if not last:
                 z = F.relu(z)
@@ -520,22 +565,23 @@ def forward(
     user_features, item_features, cfg: Config,
     train: bool = False, generator: Optional[torch.Generator] = None,
     user_features_float=None, item_features_float=None,
-    item_extra_ids=None, extra_features=None,
+    item_extra_ids=None, extra_features=None, mesh=None, rows: Optional[slice] = None,
 ) -> Tuple[torch.Tensor, dict]:
-    """Full model: logits [B, L] + the new bn state."""
+    """Full model: logits [B, L] (with ``rows``, that slice of the grid) +
+    the new bn state."""
     batch = _on_device(batch, user_features.device)
     z_u, z_i, bn_state = encode(
         params, bn_state, batch, user_features, item_features, cfg, train, generator,
-        user_features_float, item_features_float, item_extra_ids, extra_features,
+        user_features_float, item_features_float, item_extra_ids, extra_features, mesh,
     )
-    return decode(params, z_u, z_i, batch, cfg, train, generator), bn_state
+    return decode(params, z_u, z_i, batch, cfg, train, generator, rows), bn_state
 
 
 def infer(
     params: SageModel, bn_state: dict, batch: SubgraphBatch,
     user_features, item_features, cfg: Config,
     user_features_float=None, item_features_float=None,
-    item_extra_ids=None, extra_features=None,
+    item_extra_ids=None, extra_features=None, mesh=None,
 ) -> torch.Tensor:
     """Eval-mode per-user padded score matrix [B, L]; invalid slots hold
     ``INFER_PAD`` (-2⁵⁰)."""
@@ -543,16 +589,24 @@ def infer(
     logits, _ = forward(
         params, bn_state, batch, user_features, item_features, cfg, train=False,
         user_features_float=user_features_float, item_features_float=item_features_float,
-        item_extra_ids=item_extra_ids, extra_features=extra_features,
+        item_extra_ids=item_extra_ids, extra_features=extra_features, mesh=mesh,
     )
     return torch.where(batch.label_mask, logits, torch.full_like(logits, INFER_PAD))
 
 
-def bce_loss(logits: torch.Tensor, batch: SubgraphBatch) -> torch.Tensor:
+def bce_loss(logits: torch.Tensor, batch: SubgraphBatch, rows: Optional[slice] = None
+             ) -> torch.Tensor:
     """Masked BCE-with-logits over the label grid (reference
-    ``training.py:26-31``): max(x,0) − x·y + log1p(exp(−|x|))."""
+    ``training.py:26-31``): max(x,0) − x·y + log1p(exp(−|x|)). With
+    ``rows`` the logits are that slice of the grid, and the result is its
+    share of the whole grid's mean (the sum over the slice ÷ the whole
+    grid's count); the shares add up to the mean."""
     batch = _on_device(batch, logits.device)
-    per_edge = (torch.clamp_min(logits, 0.0) - logits * batch.label
+    label, mask = batch.label, batch.label_mask
+    count = torch.clamp_min(mask.to(logits.dtype).sum(), 1.0)
+    if rows is not None:
+        label, mask = label[rows], mask[rows]
+    per_edge = (torch.clamp_min(logits, 0.0) - logits * label
                 + torch.log1p(torch.exp(-logits.abs())))
-    m = batch.label_mask.to(logits.dtype)
-    return (per_edge * m).sum() / torch.clamp_min(m.sum(), 1.0)
+    m = mask.to(logits.dtype)
+    return (per_edge * m).sum() / count

@@ -1,6 +1,5 @@
 """Full-catalog top-k scoring (MIPS) with exclusion masking — counterpart of
-the JAX package's ``ops/topk.py`` (single device; the sharded form comes
-with the multi-GPU slice).
+the JAX package's ``ops/topk.py``, single device and sharded.
 
 Exclusion semantics: excluded scores are set to ``EXCLUDE_FILL`` (the
 reference's ``-(1 << 10)``) before one top-k, which equals taking
@@ -128,3 +127,65 @@ def auto_mips_topk(
             mask = exclusion_mask(num_items, exclude_items, exclude_count)
         return streaming_mips_topk(user_emb, item_emb, k, mask)
     return mips_topk(user_emb, item_emb, k, exclude_items, exclude_count)
+
+
+def sharded_mips_topk(
+    mesh,
+    user_emb: torch.Tensor,   # [B, D], the same on every rank
+    item_emb: torch.Tensor,   # [I/p, D], this rank's row block of the catalog
+    k: int,
+    exclude_items: Optional[torch.Tensor] = None,  # global ids [B, X]
+    exclude_count: Optional[torch.Tensor] = None,  # [B]
+    num_valid_items: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed MIPS top-k (JAX ``ops/topk.py:205-290``): on each rank of
+    ``model`` one product with its catalog block, exclusions set to
+    ``EXCLUDE_FILL``, columns at or past ``num_valid_items`` (the pad tail of
+    a catalog padded to divide the axis) set to ``-inf``, and the block's
+    top-k; then the k·p candidates are all-gathered and merged by one more
+    top-k (ties to the lower candidate slot, as ``lax.top_k``). Ids of
+    non-finite merged values are clamped to 0, so a row with fewer than k
+    items left still answers ids inside the catalog. Every rank returns the
+    same (values, int32 ids) [B, k]; on a 1-wide model axis this is
+    ``mips_topk`` with the tail mask. The product and top-k are library
+    calls, as the JAX package's are XLA ``dot`` and ``top_k``: exclusions
+    must read ``EXCLUDE_FILL``, not the streaming kernel's ``-inf``, which
+    would change which ids fill an over-excluded row."""
+    from ..parallel.collectives import all_gather_dim0
+    from ..parallel.mesh import MODEL_AXIS
+
+    parts = mesh.size(MODEL_AXIS)
+    shard_items = item_emb.shape[0]
+    if k > shard_items * parts:
+        raise ValueError(f"k={k} exceeds the catalog's {shard_items * parts} rows")
+    offset = mesh.rank(MODEL_AXIS) * shard_items
+    if num_valid_items is not None and num_valid_items >= shard_items * parts:
+        num_valid_items = None
+    dev = user_emb.device
+    scores = user_emb.float() @ item_emb.float().T
+    if num_valid_items is not None:
+        # the pad tail reads -inf, not EXCLUDE_FILL: user exclusions may fill a
+        # row's top-k with EXCLUDE_FILL ties, and a pad id must never win one
+        col = offset + torch.arange(shard_items, device=dev)
+        scores = torch.where((col < num_valid_items)[None, :], scores,
+                             torch.full((), -torch.inf, device=dev))
+    if exclude_items is not None:
+        b, x = exclude_items.shape
+        local = exclude_items.long() - offset
+        valid = (local >= 0) & (local < shard_items)
+        if exclude_count is not None:
+            valid &= torch.arange(x, device=dev)[None, :] < exclude_count[:, None]
+        rows = torch.arange(b, device=dev)[:, None].expand(b, x)
+        scores = scores.clone()
+        scores[rows[valid], local[valid]] = EXCLUDE_FILL
+    vals, idx = hierarchical_topk(scores, min(k, shard_items))
+    idx = idx + offset
+    if parts > 1:
+        b, kk = vals.shape
+        vals = all_gather_dim0(vals[None], mesh, MODEL_AXIS).permute(1, 0, 2).reshape(b, parts * kk)
+        idx = all_gather_dim0(idx[None], mesh, MODEL_AXIS).permute(1, 0, 2).reshape(b, parts * kk)
+    mvals, mpos = top_k_lowest_first(vals, k)
+    midx = torch.gather(idx, 1, mpos)
+    if num_valid_items is not None:
+        midx = torch.where(torch.isfinite(mvals), midx, torch.zeros_like(midx))
+    return mvals, midx.to(torch.int32)

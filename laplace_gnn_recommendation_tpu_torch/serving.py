@@ -11,6 +11,14 @@ padded and its pad rows dropped from the answer.
 ``quantized=True`` stores the catalog as per-row int8 and retrieves through
 the int8 streaming kernel (kernel C) on the card, or its plain version on
 the CPU; it never quietly serves f32 instead.
+
+With a ``mesh`` (both servers are built and called on every rank):
+``RetrievalServer`` keeps this rank's row block of a catalog padded to
+divide the model axis and answers through the distributed top-k
+(``ops/topk.sharded_mips_topk``), the pad tail never recommended; sharded
+wins over ``quantized`` when both are asked for (JAX ``:73-79``).
+``RankingServer`` runs the model with its feature tables row-sharded
+(JAX ``:319-331``).
 """
 from __future__ import annotations
 
@@ -24,7 +32,14 @@ from . import resolve_device
 from .data.lightgcn_data import padded_user_items
 from .data.sampler import SubgraphSampler, derive_budgets
 from .models import sage
-from .ops.topk import STREAMING_MAX_BATCH, auto_mips_topk, mips_topk_int8, top_k_lowest_first
+from .ops.topk import (
+    STREAMING_MAX_BATCH,
+    auto_mips_topk,
+    mips_topk_int8,
+    sharded_mips_topk,
+    top_k_lowest_first,
+)
+from .parallel.mesh import model_parts, round_up
 from .ops.topk_pallas import exclusion_mask, row_quantize, streaming_mips_topk_int8
 
 QUANTIZED_TILE = 2048  # catalog rows are padded to a multiple of this
@@ -48,6 +63,7 @@ class RetrievalServer:
         batch_size: int = 256,
         quantized: bool = False,
         device="cuda",
+        mesh=None,
     ):
         """``exclude_edges=(edge_user, edge_item)`` marks already-seen items
         that are never recommended (the train interactions).
@@ -55,23 +71,33 @@ class RetrievalServer:
         ``quantized=True`` stores the catalog as per-row int8 (4× less
         device memory; approximate retrieval), padded internally with zero
         rows to a multiple of ``QUANTIZED_TILE``; the pad rows are masked
-        out of every answer."""
-        dev = resolve_device(device)
+        out of every answer.
+
+        ``mesh`` with a model axis > 1: the whole tables are given on every
+        rank; this rank keeps its row block of the catalog, padded with zero
+        rows to divide the axis, and the tables live on the mesh's device."""
+        dev = mesh.device if mesh is not None else resolve_device(device)
         self.device = dev
+        self.mesh = mesh
+        parts = model_parts(mesh)
+        self._sharded = parts > 1
         self.user_emb = _f32_on(user_emb, dev)
         items = _f32_on(item_emb, dev)
         self.num_users, self.dim = self.user_emb.shape
         self.num_items = int(items.shape[0])   # true catalog size
         self.k = int(k)
         self.batch_size = int(batch_size)
-        self.quantized = bool(quantized)
+        self.quantized = bool(quantized) and not self._sharded
 
-        mult = QUANTIZED_TILE if self.quantized else 1
-        self.items_padded = -(-self.num_items // mult) * mult
+        mult = (QUANTIZED_TILE if self.quantized else 1) * parts
+        self.items_padded = round_up(self.num_items, mult)
         if self.items_padded != self.num_items:
             items = torch.cat(
                 [items, items.new_zeros((self.items_padded - self.num_items, self.dim))]
             )
+        if self._sharded:
+            lo, hi = mesh.row_range(self.items_padded)
+            items = items[lo:hi].contiguous()
         self.item_emb = items
         self._has_tail = self.items_padded != self.num_items
         if self.quantized:
@@ -100,13 +126,14 @@ class RetrievalServer:
         batch_size: int = 256,
         quantized: bool = False,
         device="cuda",
+        mesh=None,
     ) -> "RetrievalServer":
         """Serve the tables written by ``lightgcn_pipeline.export_artifacts``."""
         z = np.load(os.path.join(artifact_dir, "lightgcn_embeddings.npz"))
         return cls(
             z["users_emb_final"], z["items_emb_final"], k=k,
             exclude_edges=exclude_edges, batch_size=batch_size,
-            quantized=quantized, device=device,
+            quantized=quantized, device=device, mesh=mesh,
         )
 
     def _quantized_step(self, uvec, ex, exc, k):
@@ -153,7 +180,10 @@ class RetrievalServer:
             if self._ex is not None:
                 ex = torch.from_numpy(self._ex[chunk]).to(self.device)
                 exc = torch.from_numpy(self._exc[chunk]).to(self.device)
-            if self.quantized:
+            if self._sharded:
+                vals, idx = sharded_mips_topk(self.mesh, uvec, self.item_emb, k, ex, exc,
+                                              num_valid_items=self.num_items)
+            elif self.quantized:
                 vals, idx = self._quantized_step(uvec, ex, exc, k)
             else:
                 vals, idx = auto_mips_topk(uvec, self.item_emb, k, ex, exc)
@@ -175,13 +205,19 @@ class RankingServer:
         bn_state: dict,
         split: str = "test",
         exclude_seen: bool = True,
+        mesh=None,
     ):
         """``exclude_seen`` (default) masks EVERY already-interacted item of
         the split, which is what a server must do. ``False`` reproduces the
         reference's submission filter exactly (``run_submission.py:60-66``
         keeps label-0 edges only) — including its quirk that positives no
-        matcher proposed re-enter the candidate set with label 0."""
+        matcher proposed re-enter the candidate set with label 0.
+
+        ``mesh`` with a model axis > 1: ``params``' feature tables are this
+        rank's row blocks (``init_sage_params(mesh=)``), and every rank
+        answers every request."""
         self.cfg = cfg
+        self.mesh = mesh if model_parts(mesh) > 1 else None
         self.data = data
         self.params = params
         self.bn_state = bn_state
@@ -213,7 +249,7 @@ class RankingServer:
         scores = sage.infer(
             self.params, self.bn_state, batch, d.user_features, d.item_features, self.cfg,
             user_features_float=d.user_features_float, item_features_float=d.item_features_float,
-            item_extra_ids=d.item_extra_ids, extra_features=d.extra_features,
+            item_extra_ids=d.item_extra_ids, extra_features=d.extra_features, mesh=self.mesh,
         )
         pad = torch.full_like(scores, sage.INFER_PAD)
         # candidates only: positives are already interacted → excluded

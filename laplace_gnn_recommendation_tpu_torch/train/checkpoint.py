@@ -10,7 +10,14 @@ under the JAX package's key names (``['params']/.user_emb``,
 wrote loads here, params and optimizer state both. The port writes the
 npz uncompressed. ``load_latest`` keeps the version rule of the JAX
 ``checkpoint.py:97-116`` (the reference's ``run_submission.py:14-21``).
-Sharded (orbax) checkpoints come with the multi-GPU slice.
+
+Sharded checkpoints (``save_state(..., sharded=True)``, which the pipelines
+pass when the mesh's model axis is > 1) are ``torch.distributed.checkpoint``
+directories with the suffix ``SHARDED_SUFFIX``, where the JAX package writes
+orbax directories (``checkpoint.py:52-98``): every rank writes its own row
+blocks of the row-sharded leaves (DTensors sharded over ``model``,
+replicated over ``data``) and rank 0 the replicated ones. A JAX ``.orbax``
+directory is refused by name.
 """
 from __future__ import annotations
 
@@ -119,26 +126,99 @@ def load_checkpoint(path: str, template: Any) -> Any:
     return _unflatten_into(template, flat)
 
 
-def save_state(path_base: str, state: Any, sharded: bool = False) -> str:
-    """Write one checkpoint at ``path_base`` + ``.npz``; returns the path."""
+SHARDED_SUFFIX = ".dcp"
+
+
+def _dcp_state(state: Any, mesh, row_sharded: Optional[Callable[[str], bool]]) -> Dict[str, Any]:
+    """The flat state ``torch.distributed.checkpoint`` reads and writes: host
+    copies of the tensor leaves (the leaves ``row_sharded(key)`` names as
+    DTensors of their row blocks, sharded over ``model`` and replicated over
+    ``data``) and ints as 0-d tensors."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from ..parallel.mesh import MODEL_AXIS
+
+    flat: Dict[str, Any] = {}
+    for key, leaf in tree_leaves_with_path(state):
+        if not isinstance(leaf, torch.Tensor):
+            flat[key] = torch.tensor(int(leaf), dtype=torch.int64)
+            continue
+        t = leaf.detach().to("cpu", copy=True).contiguous()
+        if row_sharded is not None and row_sharded(key):
+            shape = (t.shape[0] * mesh.size(MODEL_AXIS),) + tuple(t.shape[1:])
+            t = DTensor.from_local(t, mesh.device_mesh, [Replicate(), Shard(0)],
+                                   run_check=False, shape=torch.Size(shape),
+                                   stride=torch.empty(shape, device="meta").stride())
+        flat[key] = t
+    return flat
+
+
+def save_checkpoint_sharded(path: str, state: Any, mesh,
+                            row_sharded: Optional[Callable[[str], bool]] = None) -> None:
+    """Write a ``torch.distributed.checkpoint`` directory; called on every rank."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(_dcp_state(state, mesh, row_sharded), checkpoint_id=os.path.abspath(path))
+
+
+def load_checkpoint_sharded(path: str, template: Any, mesh,
+                            row_sharded: Optional[Callable[[str], bool]] = None) -> Any:
+    """Read a :func:`save_checkpoint_sharded` directory into the structure of
+    ``template`` (this rank's row blocks); called on every rank."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor
+
+    flat = _dcp_state(template, mesh, row_sharded)
+    dcp.load(flat, checkpoint_id=os.path.abspath(path))
+
+    def load(key, leaf):
+        x = flat[key]
+        if isinstance(x, DTensor):
+            x = x.to_local()
+        if isinstance(leaf, torch.Tensor):
+            return x.to(leaf.device, leaf.dtype)
+        return int(x)
+
+    return tree_map_with_path(load, template)
+
+
+def save_state(path_base: str, state: Any, sharded: bool = False, mesh=None,
+               row_sharded: Optional[Callable[[str], bool]] = None) -> str:
+    """Write one checkpoint at ``path_base``; returns the path. Plain: an
+    npz (``.npz``; on a mesh of several ranks rank 0 writes it and the others
+    wait). ``sharded=True``: a ``torch.distributed.checkpoint`` directory
+    (``SHARDED_SUFFIX``) on a mesh of several ranks, each writing its row
+    blocks of the leaves ``row_sharded(key)`` names; called on every rank."""
+    multi = mesh is not None and mesh.device_mesh is not None
     if sharded:
-        raise NotImplementedError(
-            "sharded checkpoints come with the multi-GPU slice of the port"
-        )
+        if not multi:
+            raise ValueError("a sharded checkpoint needs a mesh of several ranks")
+        path = path_base + SHARDED_SUFFIX
+        save_checkpoint_sharded(path, state, mesh, row_sharded)
+        return path
     path = path_base + ".npz"
-    save_checkpoint(path, state)
+    if not multi or mesh.is_coordinator:
+        save_checkpoint(path, state)
+    if multi:
+        from ..parallel.collectives import barrier
+
+        barrier(mesh)
     return path
 
 
-def load_latest(directory: str, template: Any, prefix: str = "model_") -> Tuple[Any, Optional[int]]:
+def load_latest(directory: str, template: Any, prefix: str = "model_", mesh=None,
+                row_sharded: Optional[Callable[[str], bool]] = None
+                ) -> Tuple[Any, Optional[int]]:
     """The checkpoint with the highest version in its file name (``model_<n>``;
     ``model_final`` above any number), loaded into ``template``; (template,
-    None) when there is none."""
+    None) when there is none. A sharded (``SHARDED_SUFFIX``) checkpoint loads
+    on every rank of ``mesh``, ``row_sharded`` naming its sharded leaves as at
+    the save; a JAX ``.orbax`` directory is refused."""
     if not os.path.isdir(directory):
         return template, None
     best_path, best_ver = None, -1
     for name in os.listdir(directory):
-        m = re.match(rf"{re.escape(prefix)}(final|\d+)\.(npz|orbax)$", name)
+        m = re.match(rf"{re.escape(prefix)}(final|\d+)\.(npz|orbax|dcp)$", name)
         if not m:
             continue
         ver = 1 << 30 if m.group(1) == "final" else int(m.group(1))
@@ -147,7 +227,12 @@ def load_latest(directory: str, template: Any, prefix: str = "model_") -> Tuple[
     if best_path is None:
         return template, None
     if best_path.endswith(".orbax"):
-        raise NotImplementedError(
-            f"{best_path} is a sharded checkpoint; those come with the multi-GPU slice"
+        raise ValueError(
+            f"{best_path} is an orbax checkpoint of the JAX package; the port reads "
+            f"npz files and torch.distributed.checkpoint ({SHARDED_SUFFIX}) directories"
         )
+    if best_path.endswith(SHARDED_SUFFIX):
+        if mesh is None or mesh.device_mesh is None:
+            raise ValueError(f"{best_path} is a sharded checkpoint: load it on its mesh")
+        return load_checkpoint_sharded(best_path, template, mesh, row_sharded), best_ver
     return load_checkpoint(best_path, template), best_ver

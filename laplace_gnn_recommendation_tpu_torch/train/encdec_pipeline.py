@@ -1,6 +1,6 @@
 """Hetero encoder-decoder training pipeline — the port of the JAX package's
 ``train/encdec_pipeline.py`` (the reference's ``run_pipeline.py:24-153`` +
-``training.py:19-106``), on one device:
+``training.py:19-106``), on one device or on a mesh:
 
 * a train step: embed → hetero SAGE → decode → masked BCE → gradients →
   one ``optax.adam`` update (``train/adam.Adam``) applied in place;
@@ -19,6 +19,14 @@ to the card once, on the prefetch thread (``SubgraphBatch.to``). Dropout
 masks come from one ``torch.Generator`` on the card seeded from
 ``cfg.seed``: a run is repeatable from its seed, but its draws are not the
 JAX package's.
+
+On a mesh (``mesh=``, called on every rank, JAX ``:65-120``): the feature
+tables are row-sharded over ``model`` with cross-shard lookups
+(``models/sage``), and a train step splits the label grid's rows over
+``data`` — every rank samples the same host batch from the one seed, runs
+the encoder whole and decodes its slice; the loss is its share of the whole
+grid's mean, and the gradients are all-reduced over ``data`` before Adam.
+Checkpoints are sharded when the model axis is > 1 (JAX ``:264-271``).
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ from ..models import sage
 from ..ops.metrics import recall_precision_at_k, topk_hits
 from ..ops.topk import top_k_lowest_first
 from .adam import Adam
+from ..parallel.collectives import all_reduce_, all_reduce_grads_
+from ..parallel.mesh import DATA_AXIS, data_parts, mesh_from_config, model_parts
 from .checkpoint import load_latest, save_state, tree_clone
 from .lightgcn_pipeline import _finite_all, _resume_seed
 from .reporting import (
@@ -58,35 +68,52 @@ def _model_inputs(data: LinkPredData) -> dict:
     )
 
 
-def make_train_step(cfg: Config, data: LinkPredData, tx):
+def _model_mesh(mesh):
+    """The mesh the model's lookups take: only one whose model axis is > 1."""
+    return mesh if model_parts(mesh) > 1 else None
+
+
+def make_train_step(cfg: Config, data: LinkPredData, tx, mesh=None):
     """One train step on the data's device (JAX ``:65-119``):
     ``step(params, bn_state, opt_state, batch, generator)`` runs the
     forward in train mode, takes the masked BCE's gradient w.r.t. every
     parameter and applies one ``tx`` update to ``params`` in place; it
     returns (params, new_bn_state, opt_state, loss), the loss a 0-d tensor
-    on the card (not read back, so the step never waits for the card)."""
+    on the card (not read back, so the step never waits for the card).
+
+    With a ``mesh`` (called on every rank with the same batch): the label
+    grid's rows split over ``data``, the gradients are all-reduced over it,
+    and the loss returned is the whole grid's."""
     uf, itf = data.user_features, data.item_features
     extra = _model_inputs(data)
+    dp = data_parts(mesh)
 
     def step(params: sage.SageModel, bn_state, opt_state, batch: SubgraphBatch,
              generator: Optional[torch.Generator]):
         for p in params.parameters():
             p.grad = None
+        rows = mesh.batch_slice(batch.label_src.shape[0]) if dp > 1 else None
         logits, new_bn = sage.forward(params, bn_state, batch, uf, itf, cfg, train=True,
-                                      generator=generator, **extra)
-        loss = sage.bce_loss(logits, batch)
+                                      generator=generator, mesh=_model_mesh(mesh), rows=rows,
+                                      **extra)
+        loss = sage.bce_loss(logits, batch, rows)
         loss.backward()
+        loss = loss.detach()
+        if dp > 1:
+            all_reduce_grads_(params.parameters(), mesh)
+            loss = all_reduce_(loss.clone(), mesh, DATA_AXIS)
         opt_state = tx.update_(sage.grad_tree(params), opt_state, sage.jax_tree(params))
-        return params, new_bn, opt_state, loss.detach()
+        return params, new_bn, opt_state, loss
 
     return step
 
 
-def make_eval_step(cfg: Config, data: LinkPredData):
+def make_eval_step(cfg: Config, data: LinkPredData, mesh=None):
     """``eval_step(params, bn_state, batch)`` → (recall, precision) of the
-    batch as 0-d tensors (JAX ``:122-153``)."""
+    batch as 0-d tensors (JAX ``:122-153``); on a ``mesh`` every rank
+    scores the whole batch."""
     uf, itf = data.user_features, data.item_features
-    extra = _model_inputs(data)
+    extra = dict(_model_inputs(data), mesh=_model_mesh(mesh))
 
     @torch.no_grad()
     def eval_step(params, bn_state, batch: SubgraphBatch):
@@ -136,6 +163,12 @@ def _state(params, bn_state, opt_state, epoch: int) -> dict:
             "opt_state": opt_state, "epoch": int(epoch)}
 
 
+def _feature_table_leaf(key: str) -> bool:
+    """Leaves of an encoder-decoder state that are row-sharded feature
+    tables (params and Adam moments) in a sharded checkpoint."""
+    return "['embeddings']" in key
+
+
 def run_pipeline(
     cfg: Config,
     data: LinkPredData,
@@ -145,24 +178,33 @@ def run_pipeline(
     return_state: bool = False,
     resume: bool = False,
     device="cuda",
+    mesh=None,
 ):
     """Full training run (JAX ``:176-407``, reference ``run_pipeline.py:
-    24-153``) on one device: the device of ``data``'s tables, which must be
-    the ``device`` asked for (the card by default).
+    24-153``) on the device of ``data``'s tables, which must be the
+    ``device`` asked for (the card by default).
 
     Checkpoints (``model_dir/model_<epoch>.npz``, ``model_final.npz``) hold
     params, bn state, Adam state and epoch under the JAX package's keys, so
-    ``resume`` also continues from a checkpoint the JAX pipeline wrote."""
+    ``resume`` also continues from a checkpoint the JAX pipeline wrote.
+
+    ``mesh=None`` runs on one device unless ``cfg.mesh`` asks for a mesh or
+    the process is one of several launched ranks. On a mesh (called on
+    every rank) checkpoints are ``torch.distributed.checkpoint``
+    directories when the model axis is > 1."""
     cfg.print()
     cfg.check_validity()
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if data.device.type != dev.type:
         raise ValueError(f"the data's tables are on {data.device}, not on {dev}; "
                          f"build them with device={dev.type!r}")
     dev = data.device
-    mc = getattr(cfg, "mesh", None)
-    if mc is not None and (mc.data_axis, mc.model_axis) != (-1, 1):
-        raise NotImplementedError("a multi-device mesh comes with the multi-GPU slice")
+    if mesh is None:
+        mesh = mesh_from_config(getattr(cfg, "mesh", None), device=dev)
+    if mesh is not None and mesh.device.type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device}, the data on {dev}")
+    ckpt_kw = dict(mesh=mesh, row_sharded=_feature_table_leaf)
+    sharded_ckpt = model_parts(mesh) > 1
     wandb, cfg = setup_config("Fashion-Recomm-GNN", cfg.wandb_enabled, cfg)
 
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
@@ -171,14 +213,14 @@ def run_pipeline(
     )
     params, bn_state = sage.init_sage_params(
         cfg, sage.get_feature_info(data.graph), float_dims=data.float_dims(),
-        num_extra=data.num_extra, generator=gen, device=dev,
+        num_extra=data.num_extra, generator=gen, device=dev, mesh=mesh,
     )
     tx = Adam(cfg.learning_rate)
     opt_state = tx.init(sage.jax_tree(params))
 
     start_epoch = 0
     if resume:
-        state, ver = load_latest(model_dir, _state(params, bn_state, opt_state, 0))
+        state, ver = load_latest(model_dir, _state(params, bn_state, opt_state, 0), **ckpt_kw)
         if ver is not None:
             sage.load_jax_tree_(params, state["params"])
             bn_state, opt_state = state["bn_state"], state["opt_state"]
@@ -187,8 +229,8 @@ def run_pipeline(
             gen.manual_seed(_resume_seed(cfg.seed, start_epoch))
             log_fn(f"| Resuming from checkpoint (epoch {start_epoch})...")
 
-    step = make_train_step(cfg, data, tx)
-    eval_step = make_eval_step(cfg, data)
+    step = make_train_step(cfg, data, tx, mesh)
+    eval_step = make_eval_step(cfg, data, mesh)
     to_dev = lambda b: b.to(dev)  # noqa: E731
 
     old_val_precision = -1.0
@@ -216,7 +258,7 @@ def run_pipeline(
         # state itself is checked too (an inf Adam moment keeps the params
         # finite while it zeroes every later update)
         if not np.isfinite(epoch_loss) or not _finite_all(
-            (sage.jax_tree(params), bn_state, opt_state)
+            (sage.jax_tree(params), bn_state, opt_state), mesh
         ):
             if last_good is None:
                 raise FloatingPointError(
@@ -250,7 +292,8 @@ def run_pipeline(
                 else:
                     log_fn("| Saving Best Generalized Model...")
                     save_state(os.path.join(model_dir, "model_final"),
-                               _state(params, bn_state, opt_state, epoch))
+                               _state(params, bn_state, opt_state, epoch),
+                               sharded=sharded_ckpt, **ckpt_kw)
                     old_val_precision = -1.0
             report_results(
                 ContinousStatsVal(type="val", recall_val=val_recall,
@@ -260,7 +303,8 @@ def run_pipeline(
 
         if cfg.save_model and epoch % max(1, int(cfg.epochs * cfg.save_every)) == 0:
             save_state(os.path.join(model_dir, f"model_{epoch:03d}"),
-                       _state(params, bn_state, opt_state, epoch))
+                       _state(params, bn_state, opt_state, epoch),
+                       sharded=sharded_ckpt, **ckpt_kw)
 
     test_recall, test_precision = test_with_sampler(
         cfg, params, bn_state, test_s, eval_step, cfg.evaluate_break_at, dev

@@ -1,5 +1,5 @@
 """LightGCN training / eval / artifact-export pipeline — the port of the JAX
-package's ``train/lightgcn_pipeline.py`` (single device; the reference's
+package's ``train/lightgcn_pipeline.py`` (the reference's
 ``run_pipeline_lightgcn.py:20-242``):
 
 * a train step samples a BPR batch on the card (``ops/sampling.py``), runs
@@ -21,6 +21,17 @@ propagated embeddings, as in the LightGCN paper.
 Random draws come from one ``torch.Generator`` on the data's card, seeded
 from ``cfg.seed``: a run is repeatable from its seed, but its draws are not
 the JAX package's (``jax.random`` keys).
+
+On a mesh (``mesh=``, called on every rank) the node counts pad to divide
+the ``model`` axis after init, the E⁰ tables and their Adam moments are
+row-sharded over it, propagation is the sharded tier (``auto`` takes it
+when the model axis is > 1), lookups of table rows go through the
+cross-shard exchange (``ops/embedding``), and eval and export score through
+the distributed top-k (``ops/topk.sharded_mips_topk``) with the pad tail
+masked. Every rank draws the global BPR batch from the one seed and keeps
+its ``data`` slice; the loss is the mean over the global batch and the
+table gradients are all-reduced over ``data`` before Adam, so a run on any
+mesh follows the single-device run.
 """
 from __future__ import annotations
 
@@ -38,7 +49,23 @@ from ..data.lightgcn_data import EvalSet, LightGCNData, padded_user_items
 from ..models.lightgcn import LightGCNParams, bpr_loss, init_lightgcn, lightgcn_forward
 from ..ops.metrics import topk_hits
 from ..ops.sampling import sample_bpr_batch, structured_negative_sampling
-from ..ops.topk import auto_mips_topk, masked_topk
+from ..ops.embedding import shard_table, sharded_embedding_lookup
+from ..ops.topk import auto_mips_topk, masked_topk, sharded_mips_topk
+from ..parallel.collectives import (
+    all_gather_dim0,
+    all_reduce_,
+    all_reduce_world_,
+    barrier,
+    sync_grads,
+)
+from ..parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    data_parts,
+    mesh_from_config,
+    model_parts,
+    shard_rows_pad,
+)
 from .adam import StaircaseAdam
 from .checkpoint import load_latest, save_state, tree_clone, tree_leaves_with_path
 from .reporting import Stats
@@ -73,9 +100,13 @@ def maybe_dense(cfg: LightGCNConfig, graph: BipartiteGraph):
     return graph
 
 
-def select_propagation(cfg: LightGCNConfig, graph: BipartiteGraph):
+def select_propagation(cfg: LightGCNConfig, graph: BipartiteGraph, mesh=None):
     """Propagation operand for ``lightgcn_forward`` (``cfg.propagation``,
     JAX ``:76-122``).
+
+    ``sharded``, and ``auto`` when the mesh's model axis is > 1, give this
+    rank's :class:`ShardedBipartiteGraph` (kernel A per shard); with a model
+    axis > 1 no other tier applies, since the tables are row blocks.
 
     ``plain`` is the numerical reference (``index_add_``); ``dense`` the
     dense tier; ``pallas`` and ``blocked`` — two TPU layouts of one
@@ -86,18 +117,23 @@ def select_propagation(cfg: LightGCNConfig, graph: BipartiteGraph):
     from ..ops.spmm_dense import DenseAdjacency
     from ..ops.spmm_pallas import PallasGraph
 
+    from ..ops.spmm_sharded import ShardedBipartiteGraph
+
     mode = getattr(cfg, "propagation", "auto")
+    width = cfg.hidden_layer_size
+    if mode == "sharded" or (mode == "auto" and model_parts(mesh) > 1):
+        if mesh is None:
+            raise ValueError("sharded propagation needs a mesh")
+        return ShardedBipartiteGraph.from_graph(graph, mesh, width=width)
+    if model_parts(mesh) > 1:
+        raise ValueError(f"propagation={mode!r} runs on whole tables; a model axis > 1 "
+                         "takes 'sharded' or 'auto'")
     if mode == "plain":
         return graph
-    width = cfg.hidden_layer_size
     if mode == "pallas":
         return PallasGraph.from_graph(graph, width=width)
     if mode == "dense":
         return DenseAdjacency.from_graph(graph)
-    if mode == "sharded":
-        raise NotImplementedError(
-            "propagation='sharded' comes with the multi-GPU slice"
-        )
     if mode == "blocked":
         return PallasGraph.from_graph(graph, width=width,
                                       gather_bf16=uses_bf16_gather(graph))
@@ -112,6 +148,25 @@ def _user_row_ptr(g: BipartiteGraph) -> torch.Tensor:
         torch.zeros(1, dtype=torch.int64, device=g.device),
         torch.cumsum(g.user_deg.long(), 0),
     ])
+
+
+def _rows(table: torch.Tensor, idx: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``table[idx]`` of a whole table, or of one sharded over the mesh's
+    model axis (``table`` its row block; the cross-shard lookup)."""
+    if model_parts(mesh) > 1:
+        return sharded_embedding_lookup(mesh, table, idx)
+    return table[idx]
+
+
+def _bpr_share(uf_u, u0_u, itf_p, it0_p, itf_n, it0_n, lambda_val: float, variant: str,
+               n_global: int) -> torch.Tensor:
+    """This data slice's share of ``bpr_loss`` over a batch of ``n_global``
+    rows: its rank terms summed over ``n_global``, plus its regulariser. The
+    shares of all slices sum to the global loss."""
+    reg = lambda_val * (u0_u.pow(2).sum() + it0_p.pow(2).sum() + it0_n.pow(2).sum())
+    diff = (uf_u * itf_p).sum(-1) - (uf_u * itf_n).sum(-1)
+    term = F.softplus(diff) if variant == "legacy" else F.logsigmoid(diff)
+    return -term.sum() / n_global + reg
 
 
 def _on_device(graph: BipartiteGraph, device) -> torch.device:
@@ -129,6 +184,7 @@ def make_train_step(
     max_degree: int,
     prop_graph=None,
     device="cuda",
+    mesh=None,
 ):
     """One train step over ``graph`` (JAX ``:140-205``): returns
     (``step``, ``tx``). ``step(params, opt_state, generator)`` draws a BPR
@@ -137,27 +193,48 @@ def make_train_step(
     ``params`` in place; it returns (params, opt_state, loss), the loss a
     0-d tensor on the card (not read back, so the step never waits for the
     card). ``tx`` is the :class:`StaircaseAdam` whose ``init`` makes the
-    first ``opt_state``."""
+    first ``opt_state``.
+
+    With a ``mesh`` (called on every rank, ``params`` this rank's tables):
+    every rank draws the global batch from its generator (one seed on every
+    rank) and keeps its ``data`` slice; its share of the global-batch loss
+    backpropagates through the cross-shard lookups and the sharded
+    propagation, the table gradients are all-reduced over ``data``
+    (``sync_grads``), and the returned loss is the global one."""
     _on_device(graph, device)
     tx = StaircaseAdam(cfg.learning_rate, cfg.lr_decay_every)
     row_ptr = _user_row_ptr(graph)
     prop = graph if prop_graph is None else prop_graph
+    dp = data_parts(mesh)
 
     def step(params: LightGCNParams, opt_state, generator: torch.Generator):
         u, pos, neg = (x.long() for x in sample_bpr_batch(
             generator, graph.edge_user, graph.edge_item, graph.num_edges, cfg.batch_size,
             row_ptr, graph.edge_item, graph.num_items, max_degree,
         ))
+        n = u.shape[0]
+        if dp > 1:
+            sl = mesh.batch_slice(n)
+            u, pos, neg = u[sl], pos[sl], neg[sl]
         # leaves that share the tables' storage: the gradient is taken
         # w.r.t. them, and the update then writes the tables in place
         e0 = LightGCNParams(params.user_emb.detach().requires_grad_(),
                             params.item_emb.detach().requires_grad_())
-        uf, u0, itf, it0 = lightgcn_forward(e0, prop, cfg.num_iterations)
-        loss = bpr_loss(uf[u], u0[u], itf[pos], it0[pos], itf[neg], it0[neg],
-                        cfg.Lambda, cfg.bpr_variant)
+        uf, u0, itf, it0 = lightgcn_forward(
+            LightGCNParams(sync_grads(e0.user_emb, mesh), sync_grads(e0.item_emb, mesh)),
+            prop, cfg.num_iterations)
+        rows = (_rows(uf, u, mesh), _rows(u0, u, mesh), _rows(itf, pos, mesh),
+                _rows(it0, pos, mesh), _rows(itf, neg, mesh), _rows(it0, neg, mesh))
+        if dp > 1:
+            loss = _bpr_share(*rows, cfg.Lambda, cfg.bpr_variant, n)
+        else:
+            loss = bpr_loss(*rows, cfg.Lambda, cfg.bpr_variant)
         grads = LightGCNParams(*torch.autograd.grad(loss, (e0.user_emb, e0.item_emb)))
         opt_state = tx.update_(grads, opt_state, params)
-        return params, opt_state, loss.detach()
+        loss = loss.detach()
+        if dp > 1:
+            loss = all_reduce_(loss.clone(), mesh, DATA_AXIS)
+        return params, opt_state, loss
 
     return step, tx
 
@@ -171,13 +248,16 @@ def eval_loss(
     generator: torch.Generator,
     max_degree: int,
     prop_graph=None,
+    mesh=None,
 ) -> torch.Tensor:
     """BPR loss over every edge of the eval split with one sampled negative
     each (JAX ``:208-272``; reference ``run_pipeline_lightgcn.py:36-67``):
     the rank term is the mean over the split's edges, the regulariser
     λ·Σ over all of them. The forward runs over ``prop_graph`` (default
     ``eval_graph``). The JAX package pads the edges to multiples of 4096
-    and masks the pads out; the port needs no padding."""
+    and masks the pads out; the port needs no padding. On a ``mesh`` whose
+    model axis is > 1 the rows come through the cross-shard lookup, and
+    every rank computes the whole loss."""
     dev = eval_graph.device
     e = len(eval_set.edge_user)
     eu = torch.from_numpy(eval_set.edge_user.astype(np.int64)).to(dev)
@@ -189,8 +269,10 @@ def eval_loss(
     uf, u0, itf, it0 = lightgcn_forward(
         params, eval_graph if prop_graph is None else prop_graph, cfg.num_iterations
     )
-    reg = cfg.Lambda * (u0[eu] ** 2 + it0[ei] ** 2 + it0[neg] ** 2).sum()
-    diff = (uf[eu] * itf[ei]).sum(-1) - (uf[eu] * itf[neg]).sum(-1)
+    uf_u, itf_i, itf_n = _rows(uf, eu, mesh), _rows(itf, ei, mesh), _rows(itf, neg, mesh)
+    reg = cfg.Lambda * (_rows(u0, eu, mesh) ** 2 + _rows(it0, ei, mesh) ** 2
+                        + _rows(it0, neg, mesh) ** 2).sum()
+    diff = (uf_u * itf_i).sum(-1) - (uf_u * itf_n).sum(-1)
     if cfg.bpr_variant == "legacy":
         rank = -F.softplus(diff).sum() / max(e, 1)
     else:
@@ -249,11 +331,18 @@ def get_metrics(
     graph_for_final=None,
     eval_embeddings: str = "e0",
     chunk: int = 1024,
+    mesh=None,
+    num_valid_items=None,
 ) -> Tuple[float, float, float]:
     """recall/precision/ndcg@k over an eval split, chunked over users
     (``utils/metrics_lightgcn.py:79-122`` semantics: scores = user·itemᵀ,
     train edges masked out, topk(k), hits vs the split's ground truth).
-    ``graph_for_final`` is the propagation operand for ``"final"``."""
+    ``graph_for_final`` is the propagation operand for ``"final"``.
+
+    On a ``mesh`` whose model axis is > 1 the tables are row blocks: the
+    users' rows come through the cross-shard lookup and the scoring is the
+    distributed top-k (JAX ``_sharded_metrics_chunk``, ``:320``), with item
+    ids at or past ``num_valid_items`` (the pad tail) masked."""
     if eval_embeddings == "final":
         if graph_for_final is None:
             raise ValueError("eval_embeddings='final' needs graph_for_final")
@@ -274,6 +363,9 @@ def get_metrics(
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    sharded = model_parts(mesh) > 1
+    nvalid = int(num_valid_items if num_valid_items is not None
+                 else item_emb.shape[0] * model_parts(mesh))
     rs = hs = ns = cnt = 0.0
     for s in range(0, b, chunk):
         e = min(s + chunk, b)
@@ -285,10 +377,14 @@ def get_metrics(
         ex = np.pad(eval_set.exclude_items[s:e], ((0, pad), (0, 0)), constant_values=-1)
         exc = np.pad(eval_set.exclude_count[s:e], (0, pad))
         valid = np.arange(chunk) < c
-        r_, h_, n_, m_ = _metrics_chunk(
-            user_emb[t(uu).long()], item_emb, t(gt), t(gtc), t(ex), t(exc),
-            t(valid), cfg.k,
-        )
+        uvec = _rows(user_emb, t(uu).long(), mesh)
+        if sharded:
+            _, topk_items = sharded_mips_topk(mesh, uvec, item_emb, cfg.k, t(ex), t(exc),
+                                              num_valid_items=nvalid)
+            r_, h_, n_, m_ = _metrics_from_topk(topk_items, t(gt), t(gtc), t(valid), cfg.k)
+        else:
+            r_, h_, n_, m_ = _metrics_chunk(uvec, item_emb, t(gt), t(gtc), t(ex), t(exc),
+                                            t(valid), cfg.k)
         rs += float(r_); hs += float(h_); ns += float(n_); cnt += float(m_)
     cnt = max(cnt, 1.0)
     return rs / cnt, hs / cnt / cfg.k, ns / cnt
@@ -304,13 +400,17 @@ def evaluation(
     eval_embeddings: str = "e0",
     prop_graph=None,
     metrics_prop_graph=None,
+    mesh=None,
+    num_valid_items=None,
 ) -> Tuple[float, float, float, float]:
     """(loss, recall, precision, ndcg) — JAX ``:420-454``, reference
     ``run_pipeline_lightgcn.py:20-73``. The loss propagates over the eval
     split's own adjacency (``prop_graph``); the metrics under
     ``eval_embeddings="final"`` over ``metrics_prop_graph`` — callers pass
-    the TRAIN operand, since the eval split's edges are the targets."""
-    loss = float(eval_loss(cfg, params, eval_graph, eval_set, generator, max_degree, prop_graph))
+    the TRAIN operand, since the eval split's edges are the targets. ``mesh``
+    and ``num_valid_items`` as in :func:`get_metrics`."""
+    loss = float(eval_loss(cfg, params, eval_graph, eval_set, generator, max_degree,
+                           prop_graph, mesh))
     recall, precision, ndcg = get_metrics(
         params, cfg, eval_set,
         graph_for_final=(
@@ -318,6 +418,7 @@ def evaluation(
             else (prop_graph if prop_graph is not None else eval_graph)
         ),
         eval_embeddings=eval_embeddings,
+        mesh=mesh, num_valid_items=num_valid_items,
     )
     return loss, recall, precision, ndcg
 
@@ -328,6 +429,7 @@ def export_artifacts(
     cfg: LightGCNConfig,
     artifact_dir: str,
     chunk: int = 1024,
+    mesh=None,
 ) -> np.ndarray:
     """Top-``num_recommendations`` per user (every known interaction
     excluded) + the embedding tables (reference ``run_pipeline_lightgcn.py:
@@ -335,8 +437,16 @@ def export_artifacts(
     ``lightgcn_output.npz`` and ``lightgcn_embeddings.npz``.
 
     As in the reference, the tables saved under ``users_emb_final`` /
-    ``items_emb_final`` are the E⁰ tables."""
-    os.makedirs(artifact_dir, exist_ok=True)
+    ``items_emb_final`` are the E⁰ tables, at the true node counts.
+
+    On a ``mesh`` (called on every rank) whose model axis is > 1, ``params``
+    are row blocks of tables padded to divide it: the sweep runs the
+    distributed top-k over the pad-masked catalog, and rank 0 writes the
+    files (the others wait for them)."""
+    sharded = model_parts(mesh) > 1
+    multi = mesh is not None and mesh.device_mesh is not None
+    if not multi or mesh.is_coordinator:
+        os.makedirs(artifact_dir, exist_ok=True)
     eu, ei = data.all_edges
     dev = params.user_emb.device
     users = np.arange(data.num_users, dtype=np.int32)
@@ -350,27 +460,52 @@ def export_artifacts(
             np.pad(pos_items[s:e], ((0, pad), (0, 0)), constant_values=-1)
         ).to(dev)
         exc = torch.from_numpy(np.pad(pos_count[s:e], (0, pad))).to(dev)
-        _, idx = auto_mips_topk(params.user_emb[uu], params.item_emb,
-                                cfg.num_recommendations, ex, exc)
+        if sharded:
+            _, idx = sharded_mips_topk(mesh, _rows(params.user_emb, uu, mesh), params.item_emb,
+                                       cfg.num_recommendations, ex, exc,
+                                       num_valid_items=data.num_items)
+        else:
+            _, idx = auto_mips_topk(params.user_emb[uu], params.item_emb,
+                                    cfg.num_recommendations, ex, exc)
         out[s:e] = idx.cpu().numpy()[: e - s]
 
-    np.savez_compressed(
-        os.path.join(artifact_dir, "lightgcn_output.npz"), recommendations=out,
-    )
-    np.savez_compressed(
-        os.path.join(artifact_dir, "lightgcn_embeddings.npz"),
-        users_emb_final=params.user_emb[: data.num_users].cpu().numpy(),
-        items_emb_final=params.item_emb[: data.num_items].cpu().numpy(),
-    )
+    user_emb, item_emb = params.user_emb, params.item_emb
+    if sharded:
+        user_emb = all_gather_dim0(user_emb.detach(), mesh, MODEL_AXIS)
+        item_emb = all_gather_dim0(item_emb.detach(), mesh, MODEL_AXIS)
+    if not multi or mesh.is_coordinator:
+        np.savez_compressed(
+            os.path.join(artifact_dir, "lightgcn_output.npz"), recommendations=out,
+        )
+        np.savez_compressed(
+            os.path.join(artifact_dir, "lightgcn_embeddings.npz"),
+            users_emb_final=user_emb[: data.num_users].cpu().numpy(),
+            items_emb_final=item_emb[: data.num_items].cpu().numpy(),
+        )
+    barrier(mesh)
     return out
 
 
-def _finite_all(tree) -> bool:
+def _finite_all(tree, mesh=None) -> bool:
     """Whether every float tensor of ``tree`` is finite: one reduction, one
-    read from the card (the JAX ``train/encdec_pipeline._finite_all``)."""
+    read from the card (the JAX ``train/encdec_pipeline._finite_all``). On a
+    mesh of several ranks the answer is every rank's (one all-reduce), so
+    all ranks take the same branch."""
     flags = [torch.isfinite(x).all() for _, x in tree_leaves_with_path(tree)
              if isinstance(x, torch.Tensor) and x.is_floating_point()]
-    return bool(torch.stack(flags).all()) if flags else True
+    ok = torch.stack(flags).all() if flags else torch.ones((), dtype=torch.bool)
+    if mesh is None or mesh.device_mesh is None:
+        return bool(ok)
+    import torch.distributed as dist
+
+    ok = ok.to(device=mesh.device, dtype=torch.float32).reshape(1)
+    return bool(all_reduce_world_(ok, mesh, dist.ReduceOp.MIN)[0] > 0)
+
+
+def _table_leaf(key: str) -> bool:
+    """Leaves of a LightGCN state that are row-sharded tables (params and
+    Adam moments) in a sharded checkpoint."""
+    return key.endswith(".user_emb") or key.endswith(".item_emb")
 
 
 def _resume_seed(seed: int, start_it: int) -> int:
@@ -386,11 +521,19 @@ def train(
     eval_embeddings: str = "e0",
     log_fn=print,
     device="cuda",
+    mesh=None,
 ) -> Stats:
     """Full training loop — JAX ``:529-780``, reference
-    ``run_pipeline_lightgcn.py:76-232``, on one device: the device of the
-    data's graphs, which must be the ``device`` asked for (the card by
-    default).
+    ``run_pipeline_lightgcn.py:76-232``, on the device of the data's graphs,
+    which must be the ``device`` asked for (the card by default).
+
+    ``mesh=None`` runs on one device, unless ``cfg.mesh`` asks for a mesh or
+    the process is one of several launched ranks: then the mesh is built
+    from ``cfg.mesh`` over every rank (JAX ``:548-558``). On a mesh (see the
+    module's docstring) ``train`` is called on every rank; the node counts
+    pad to divide the model axis after init, so the true rows equal the
+    single-device run's (JAX ``:565-585``), and checkpoints are sharded when
+    the model axis is > 1.
 
     Every ``eval_every`` steps: a non-finite loss, params or optimizer state
     rolls back to a copy taken at the last finite eval point (the retried
@@ -401,10 +544,24 @@ def train(
     the best val recall seen. ``Stats.loss_curve`` holds every step's loss.
     """
     cfg.print()
-    dev = _on_device(data.train_graph, device)
+    dev = _on_device(data.train_graph, mesh.device if mesh is not None else device)
+    if mesh is None:
+        mesh = mesh_from_config(getattr(cfg, "mesh", None), device=dev)
+    if mesh is not None and mesh.device.type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device}, the data on {dev}")
+    parts = model_parts(mesh)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     params = init_lightgcn(data.num_users, data.num_items, cfg.hidden_layer_size,
                            generator=gen, device=dev)
+    u_pad, i_pad = data.num_users, data.num_items
+    if parts > 1:
+        # pad after init (the true rows are the single-device run's), then
+        # keep this rank's row blocks
+        u_pad, i_pad = shard_rows_pad(u_pad, mesh), shard_rows_pad(i_pad, mesh)
+        params = LightGCNParams(
+            user_emb=shard_table(mesh, F.pad(params.user_emb, (0, 0, 0, u_pad - data.num_users))),
+            item_emb=shard_table(mesh, F.pad(params.item_emb, (0, 0, 0, i_pad - data.num_items))),
+        )
 
     def max_degree(g: BipartiteGraph) -> int:
         return max(1, int(g.user_deg.max().item())) if g.num_users else 1
@@ -413,24 +570,34 @@ def train(
     # one bound for both eval splits, as in the JAX package; it only has to
     # be at least each split's true maximum
     max_deg_eval = max(max_degree(data.val_graph), max_degree(data.test_graph))
-    train_prop = select_propagation(cfg, data.train_graph)
+
+    def prop_operand(g: BipartiteGraph):
+        if parts > 1 and (u_pad != g.num_users or i_pad != g.num_items):
+            # the same edges (so the same degrees and weights) over the
+            # padded node counts; only its host arrays are read
+            g = BipartiteGraph.from_edges(*g.edges_host(), u_pad, i_pad, device="cpu")
+        return select_propagation(cfg, g, mesh)
+
+    train_prop = prop_operand(data.train_graph)
     # val/test operands are built at their first eval (host plan build and
     # card memory are wasted when eval_every is sparse)
     _prop_cache: dict = {}
 
     def eval_prop(name: str, graph: BipartiteGraph):
         if name not in _prop_cache:
-            _prop_cache[name] = select_propagation(cfg, graph)
+            _prop_cache[name] = prop_operand(graph)
         return _prop_cache[name]
 
     step_fn, tx = make_train_step(cfg, data.train_graph, max_deg_train,
-                                  prop_graph=train_prop, device=dev)
+                                  prop_graph=train_prop, device=dev, mesh=mesh)
     opt_state = tx.init(params)
 
     ckpt_dir = os.path.join(cfg.artifact_dir, "lightgcn_ckpt")
+    ckpt_kw = dict(mesh=mesh, row_sharded=_table_leaf)
     start_it = 0
     if cfg.resume:
-        state, ver = load_latest(ckpt_dir, {"params": params, "opt_state": opt_state})
+        state, ver = load_latest(ckpt_dir, {"params": params, "opt_state": opt_state},
+                                 **ckpt_kw)
         if ver is not None:
             params, opt_state = state["params"], state["opt_state"]
             start_it = ver + 1
@@ -441,6 +608,7 @@ def train(
         return evaluation(
             cfg, params, graph, eval_set, gen, max_deg_eval, eval_embeddings,
             prop_graph=eval_prop(name, graph), metrics_prop_graph=train_prop,
+            mesh=mesh, num_valid_items=data.num_items,
         )
 
     train_loss = torch.zeros((), device=dev)
@@ -454,16 +622,17 @@ def train(
 
         if cfg.checkpoint_every and it % cfg.checkpoint_every == 0 and it > start_it:
             # never persist a poisoned state: resume loads the newest checkpoint
-            if np.isfinite(float(train_loss)) and _finite_all((params, opt_state)):
+            if np.isfinite(float(train_loss)) and _finite_all((params, opt_state), mesh):
                 save_state(os.path.join(ckpt_dir, f"model_{it}"),
-                           {"params": params, "opt_state": opt_state})
+                           {"params": params, "opt_state": opt_state},
+                           sharded=parts > 1, **ckpt_kw)
             else:
                 log_fn(f"| skipping checkpoint at iter {it}: non-finite state")
 
         if it % cfg.eval_every == 0:
             # checked on params AND optimizer state: an inf second moment
             # keeps the params finite while it zeroes every later update
-            if not np.isfinite(float(train_loss)) or not _finite_all((params, opt_state)):
+            if not np.isfinite(float(train_loss)) or not _finite_all((params, opt_state), mesh):
                 if last_good is None:
                     raise FloatingPointError(
                         f"non-finite loss {float(train_loss)} at iter {it} "
@@ -506,7 +675,7 @@ def train(
     )
 
     if export:
-        export_artifacts(params, data, cfg, cfg.artifact_dir)
+        export_artifacts(params, data, cfg, cfg.artifact_dir, mesh=mesh)
 
     return Stats(
         loss=float(train_loss),

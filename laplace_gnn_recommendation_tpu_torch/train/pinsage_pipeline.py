@@ -1,6 +1,6 @@
 """PinSAGE training and evaluation — the port of the JAX package's
 ``train/pinsage_pipeline.py`` (reference ``pinsage/model.py:36-134`` and
-``pinsage/evaluation.py:18-73``), on one device:
+``pinsage/evaluation.py:18-73``), on one device or on a mesh:
 
 * epochs of (head, tail, neg) margin-loss batches over random-walk blocks,
   sampled on the host and moved to the card on a prefetch thread, through
@@ -18,6 +18,13 @@
 Dropout draws from one ``torch.Generator`` on the device seeded from
 ``cfg.seed``; a run repeats from its seed, but its draws are not the JAX
 package's.
+
+On a mesh (``mesh=``, called on every rank, JAX ``:280-300``): every rank
+samples the same batches from the one seed; the dense step splits the
+(head, tail, neg) pairs over ``data`` and all-reduces the gradients (the
+sparse step runs whole on every rank, as the JAX step does), and HITS@k
+retrieves through the distributed top-k over a row-sharded catalog
+(JAX ``_sharded_hits_topk``, ``:56-69``).
 """
 from __future__ import annotations
 
@@ -34,7 +41,9 @@ from .. import resolve_device
 from ..data.pinsage_data import PinSAGEData, PinSAGESampler, build_pinsage_data
 from ..data.prefetch import prefetch
 from ..models import pinsage as M
-from ..ops.topk import masked_topk
+from ..ops.topk import masked_topk, sharded_mips_topk
+from ..parallel.collectives import all_reduce_, all_reduce_grads_, barrier
+from ..parallel.mesh import DATA_AXIS, data_parts, model_parts, shard_rows_pad
 from .adam import Adam
 from .checkpoint import load_latest, save_state, tree_grads
 from .lightgcn_pipeline import _resume_seed
@@ -69,11 +78,6 @@ class MaskedState:
     it updates (the sparse path's Adam leaves out the id table and biases)."""
 
     inner_state: tuple
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("a multi-device mesh comes with the multi-GPU slice")
 
 
 def embed_all_items(
@@ -121,11 +125,21 @@ def hits_at_k(
     the train items excluded; a hit when a top-k item is in the split's
     ground truth. Users without ground truth or a train item are left out;
     ``user_cap`` keeps that many, evenly spaced. Scores on ``device``; the
-    tail chunk is as short as it is."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    tail chunk is as short as it is.
+
+    With a ``mesh`` whose model axis is > 1 (called on every rank, on its
+    device) the catalog is padded to divide the axis, each rank keeps its
+    row block, and the sweep runs the distributed top-k with the pad tail
+    masked (JAX ``:104-165``)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     gt = data.val_items if split == "val" else data.test_items
     h = torch.as_tensor(np.asarray(h_item, np.float32)).to(dev)
+    num_valid = h.shape[0]
+    sharded_h = None
+    if model_parts(mesh) > 1:
+        i_pad = shard_rows_pad(num_valid, mesh)
+        lo, hi = mesh.row_range(i_pad)
+        sharded_h = torch.cat([h, h.new_zeros((i_pad - num_valid, h.shape[1]))])[lo:hi]
     has_gt = np.fromiter((len(x) > 0 for x in gt), bool, count=data.num_users)
     users = np.flatnonzero(has_gt & (data.latest_item_per_user >= 0))
     if user_cap is not None and len(users) > user_cap:
@@ -143,9 +157,14 @@ def hits_at_k(
         inside = slots[None, :] < cnt[:, None]
         excl = np.where(inside, csr.cols[np.where(inside, pos, 0)], -1)
         latest = torch.from_numpy(data.latest_item_per_user[chunk].astype(np.int64)).to(dev)
-        scores = h.index_select(0, latest) @ h.T
-        _, topk = masked_topk(scores, k, torch.from_numpy(excl.astype(np.int64)).to(dev),
-                              torch.from_numpy(cnt.astype(np.int64)).to(dev))
+        ex = torch.from_numpy(excl.astype(np.int64)).to(dev)
+        exc = torch.from_numpy(cnt.astype(np.int64)).to(dev)
+        if sharded_h is not None:
+            _, topk = sharded_mips_topk(mesh, h.index_select(0, latest), sharded_h, k, ex, exc,
+                                        num_valid_items=num_valid)
+        else:
+            scores = h.index_select(0, latest) @ h.T
+            _, topk = masked_topk(scores, k, ex, exc)
         topk = topk.cpu().numpy()
         for row, u in enumerate(chunk):
             hits.append(bool(np.isin(topk[row], gt[u]).any()))
@@ -158,6 +177,7 @@ def make_train_step(
     item_features: torch.Tensor,
     item_features_float: Optional[torch.Tensor],
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ):
     """One train step on the device of ``params``: (step, state).
     ``step(batch, src_mask, dst_mask)`` takes a batch on that device and its
@@ -169,9 +189,14 @@ def make_train_step(
     biases) and, with ``sparse_embedding``, ``sparse_state`` (the two lazy
     Adam states); the step updates it in place. The sparse step's valid rows
     come from the host masks, so finding them reads nothing back from the
-    card."""
+    card.
+
+    With a ``mesh`` whose data axis is > 1 (every rank called with the same
+    batch), the dense step scores its slice of the pairs, all-reduces the
+    gradients over ``data`` and returns the whole batch's loss."""
     tx = Adam(cfg.lr)
     tree = M.jax_tree(params)
+    dp = data_parts(mesh)
     if not cfg.sparse_embedding:
         state = {"opt_state": tx.init(tree)}
     else:
@@ -185,12 +210,17 @@ def make_train_step(
         for p in params.parameters():
             p.grad = None
         if not cfg.sparse_embedding:
+            rows = mesh.batch_slice(batch.pos_head.shape[0]) if dp > 1 else None
             loss = M.margin_loss(params, batch, item_features, item_features_float,
-                                 train=True, generator=generator)
+                                 train=True, generator=generator, rows=rows)
             loss.backward()
+            loss = loss.detach()
+            if dp > 1:
+                all_reduce_grads_(params.parameters(), mesh)
+                loss = all_reduce_(loss.clone(), mesh, DATA_AXIS)
             state["opt_state"] = tx.update_(M.grad_tree(params), state["opt_state"],
                                             M.jax_tree(params))
-            return loss.detach()
+            return loss
         src = batch.blocks[0].src_ids
         dst = batch.blocks[-1].dst_ids
         id_rows = params.proj.id_table.detach().index_select(0, src).requires_grad_()
@@ -249,9 +279,13 @@ def train(
     and no ``test_hits`` unless it reached ``cfg.num_epochs``. A call that
     resumes at ``cfg.num_epochs`` trains nothing: its ``loss`` and
     ``val_hits`` are None, and ``test_hits`` is measured on the restored
-    params."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    params.
+
+    With a ``mesh`` (called on every rank) the run is on its device, the
+    dense step splits the pairs over ``data``, HITS@k retrieves through the
+    distributed top-k when the model axis is > 1, and rank 0 writes the
+    checkpoints."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     sampler = PinSAGESampler(
         data,
         random_walk_length=cfg.random_walk_length,
@@ -275,13 +309,19 @@ def train(
                            else data.item_features_float.shape[1]),
         generator=gen, device=dev,
     )
-    step, state = make_train_step(cfg, params, item_features, item_features_float, gen)
+    step, state = make_train_step(cfg, params, item_features, item_features_float, gen, mesh)
 
     def ckpt_state():
         return {"params": M.jax_tree(params), **state}
 
     start_epoch = 0
     if checkpoint_dir:
+        # rank 0 writes the config of a first leg while no rank reads; then
+        # every rank checks it
+        barrier(mesh)
+        if mesh is None or mesh.is_coordinator:
+            _check_config(checkpoint_dir, cfg)
+        barrier(mesh)
         _check_config(checkpoint_dir, cfg)
         restored, ver = load_latest(checkpoint_dir, ckpt_state(), prefix="pinsage_")
         if ver is not None:
@@ -308,11 +348,12 @@ def train(
                                                   transform=to_device):
             loss = step(batch, src_mask, dst_mask)
         h_item = embed_all_items(cfg, params, data, sampler, item_features, item_features_float)
-        val_hits = hits_at_k(data, h_item, cfg.k, "val", device=dev)
+        val_hits = hits_at_k(data, h_item, cfg.k, "val", device=dev, mesh=mesh)
         loss_value = float(loss) if loss is not None else float("nan")
         log_fn(f"[epoch {epoch}] loss: {loss_value:.5f} HITS@{cfg.k} (val): {val_hits:.5f}")
         if checkpoint_dir:
-            save_state(os.path.join(checkpoint_dir, f"pinsage_{epoch + 1}"), ckpt_state())
+            save_state(os.path.join(checkpoint_dir, f"pinsage_{epoch + 1}"), ckpt_state(),
+                       mesh=mesh)
         epochs_this_run += 1
         if (max_epochs_this_run is not None and epochs_this_run >= max_epochs_this_run
                 and epoch + 1 < cfg.num_epochs):
@@ -320,7 +361,7 @@ def train(
                     "completed": False, "epochs_done": epoch + 1}
 
     h_item = embed_all_items(cfg, params, data, sampler, item_features, item_features_float)
-    test_hits = hits_at_k(data, h_item, cfg.k, "test", device=dev)
+    test_hits = hits_at_k(data, h_item, cfg.k, "test", device=dev, mesh=mesh)
     log_fn(f"HITS@{cfg.k} (test): {test_hits:.5f}")
     return {
         "params": params,

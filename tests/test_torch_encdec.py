@@ -226,8 +226,8 @@ def test_nan_epoch_rolls_back(data, monkeypatch):
     calls = {"n": 0}
     steps_per_epoch = -(-len(data.splits["train"].user_csr.degrees.nonzero()[0]) // cfg.batch_size)
 
-    def poisoned_make(cfg_, data_, tx):
-        real_step = real_make(cfg_, data_, tx)
+    def poisoned_make(cfg_, data_, tx, mesh=None):
+        real_step = real_make(cfg_, data_, tx, mesh)
 
         def step(params, bn_state, opt_state, batch, gen):
             p, b, o, loss = real_step(params, bn_state, opt_state, batch, gen)
@@ -252,8 +252,8 @@ def test_nan_epoch_rolls_back(data, monkeypatch):
 def test_non_finite_first_epoch_raises(data, monkeypatch):
     real_make = tpipe.make_train_step
 
-    def poisoned_make(cfg_, data_, tx):
-        real_step = real_make(cfg_, data_, tx)
+    def poisoned_make(cfg_, data_, tx, mesh=None):
+        real_step = real_make(cfg_, data_, tx, mesh)
         return lambda *a: (*real_step(*a)[:3], torch.tensor(float("nan")))
 
     monkeypatch.setattr(tpipe, "make_train_step", poisoned_make)

@@ -401,8 +401,15 @@ class TestPipeline:
         assert got == pytest.approx(np.mean(want))
 
     def test_mesh_is_not_ported(self, data):
-        with pytest.raises(NotImplementedError):
-            train(PinSAGEConfig(num_epochs=1), data, mesh=object(), device="cpu")
+        """The mesh path is ported (several ranks: ``tests/
+        test_torch_sharded_production.py``); on a one-rank mesh ``train``
+        gives the run without one."""
+        from laplace_gnn_recommendation_tpu_torch.parallel.mesh import build_mesh
+
+        cfg = PinSAGEConfig(num_epochs=1, batches_per_epoch=2, batch_size=8, hidden_dims=8)
+        one = train(cfg, data, log_fn=quiet, device="cpu")
+        mesh = train(cfg, data, log_fn=quiet, mesh=build_mesh(device="cpu"))
+        assert one["loss"] == mesh["loss"] and one["test_hits"] == mesh["test_hits"]
 
 
 def test_sorted_sum_into_a_big_table():

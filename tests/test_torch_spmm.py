@@ -213,8 +213,10 @@ def test_select_propagation_auto_picks_kernel_on_card(monkeypatch, num_edges):
 
 @pytest.mark.parametrize("mode", ["sharded"])
 def test_select_propagation_unported_modes_raise(mode):
+    """The sharded tier is ported (``tests/test_torch_spmm_sharded.py``); it
+    takes a mesh, and asked for without one it raises."""
     _, tg = _graph_pair(2, 10, 8, 30)
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         select_propagation(LightGCNConfig(propagation=mode), tg)
 
 
