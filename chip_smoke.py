@@ -89,7 +89,13 @@ on one NVIDIA H100: ``python3 chip_smoke.py`` from the repository root.
    ``create_link_pred_data_from_artifacts`` → ``run_pipeline`` (2 epochs)
    → ``submission_pipeline`` from its checkpoint, a MAP@12 CSV. Kernels A,
    B and C launch 0 times on this path (counters zeroed before, read
-   after).
+   after). The same leg (``preprocess`` → ``run_pinsage_cli``, no
+   checkpoints) then runs in two fresh processes at once, with string
+   hashing seeded 0 in one and 1 in the other (``python3 chip_smoke.py
+   --pinsage-leg RAW ART OUT``): their artifacts, item features, initial
+   weights, every host batch's hash, every step's loss and gradient sums,
+   the loss and HITS@10 must be equal, and the loss and HITS@10 equal to
+   this process's run.
 9. The multi-GPU path (``parallel/``), on the one card. (a) One NCCL rank
    in this process (a world of one): a 1×1 mesh with
    ``propagation="sharded"`` on phase 5's H&M train graph (D=32, K=4):
@@ -113,7 +119,28 @@ on one NVIDIA H100: ``python3 chip_smoke.py`` from the repository root.
    (``collectives.transports``), are printed; kernel A's launches on these paths
    go into the ``kernels`` line. NCCL between several ranks is not run
    here: the machine has one card.
-10. Prints a ``{"kernels": [...]}`` JSON line, the card's line, and as the
+10. The periphery. (c) Right after 9a, on phase 5's H&M data:
+   ``hpo.run_successive_halving`` over LightGCN at ``bench_hm.make_cfg``'s
+   settings (``propagation="auto"``: kernel A's bf16-gather mode), four
+   learning rates, rungs of 10 and 20 steps, eta 2, each trial resuming its
+   own checkpoint from its trial directory (the second rung's logs must say
+   it resumed at iteration 10; the best value must be finite; kernel A's
+   launches join the ``kernels`` line). (a) After 9b: ``ClipEmbedder`` at
+   ``CLIPConfig()``'s ViT-B/32 widths, random weights from a seed, bf16,
+   batch 256; ``produce_article_embeddings`` over the 104,547 H&M article
+   ids with synthetic descriptions (hash-tokenised) and over 2,048 random
+   224×224 images: articles/s per tower, device ms a batch, peak memory,
+   the npz write's wall; every vector finite and unit-norm; one batch per
+   tower in bf16 against f32 on the card (cosine ≥ 0.99) and the f32
+   batch's first rows against the port's CLIP on the CPU (relative L2 ≤
+   1e-4). (b) An ``InMemoryGraphStore`` over phase 7's pipeline graph cut
+   to 2,000 × 500 (its items carrying 10a's text vectors as float
+   features): ``run_pipeline(graph_store=store, randomization=False)`` at
+   ``Config``'s widths for 2 epochs, twice with one seed (losses equal bit
+   for bit); then ``GraphStoreSampler`` seeds/s against the native
+   sampler's on phase 7's 200,000 × 50,000 graph (host clock). Each part's
+   wall is printed.
+11. Prints a ``{"kernels": [...]}`` JSON line, the card's line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero; the script needs a CUDA card and the checkout.
@@ -183,6 +210,29 @@ TOL_SHARD_LOSS = 1e-4   # abs, 2 ranks against one process (the JAX test's bound
 # precision abs; PinSAGE's loss rel, its HITS abs
 TOL_DP_RECALL, TOL_DP_RANK_LOSS, TOL_DP_RANK_RECALL = 1e-9, 1e-4, 1e-6
 TOL_DP_PIN_LOSS, TOL_DP_PIN_HITS = 1e-4, 1e-9
+# phase 10: the periphery. 10a: CLIP at ViT-B/32 width (transformers'
+# CLIPConfig() defaults), random weights, bf16, batch 256, text for every
+# H&M article id and images for 2,048; one batch of each in bf16 against f32
+# (cosine), and the first rows of the f32 batch against the port on the CPU
+# (relative L2 over the block)
+CLIP_BATCH, CLIP_IMAGES, CLIP_CPU_ROWS = 256, 2_048, (16, 8)
+ARTICLE_ID0 = 108_775_015   # the first H&M article id
+TOL_CLIP_COS, TOL_CLIP_CPU, TOL_CLIP_NORM = 0.99, 1e-4, 1e-4
+CLIP_DIR = os.path.join("_chip", "smoke_clip")   # npz artifacts, removed at the end
+# 10b: the store-backed ranking stack on phase 7's pipeline graph cut to a
+# tenth of its users and items (the store answers a whole 2-hop
+# neighbourhood per seed, uncapped, and the shared Python assembly takes
+# it: two 2-epoch runs at 20,000 × 5,000 would not fit the phase's time);
+# then the store sampler's seeds/s against the native sampler's on phase
+# 7's graph
+STORE_USERS, STORE_ITEMS, STORE_EPOCHS = 2_000, 500, 2
+# a buyer of popular items has hundreds of thousands of edges in its 2-hop
+# neighbourhood there, so the store's reading takes one batch of 32 seeds;
+# the native sampler's 20 batches of 256
+STORE_BATCH_SEEDS, STORE_NATIVE_BATCHES = 32, 20
+# 10c: successive halving over LightGCN on phase 5's H&M train graph
+HPO_LRS, HPO_RUNGS, HPO_ETA = (1e-2, 3e-3, 1e-3, 3e-4), (10, 20), 2
+HPO_DIR = os.path.join("_chip", "smoke_hpo")   # trial checkpoints, removed at the end
 WINDOW_SHARES = (0, 0.25, 0.5, 0.75)   # kernel A's window sizes tried, as shares of L2
 # device_ms: launches the timed calls may queue behind the device-side sleep
 # (the card's launch queue takes ~1,000); the event time stands where it is
@@ -1035,6 +1085,123 @@ def write_movielens(raw_dir, seed=0):
     return dict(users=ML_USERS, movies=ML_MOVIES, ratings=int(len(users)))
 
 
+def _sha(arrays):
+    """A short hash of arrays' dtypes, shapes and bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+def pinsage_leg(raw_dir, art_dir, out_path):
+    """One process of phase 8's repeat check: ``preprocess`` the ml-1m files
+    in ``raw_dir`` into ``art_dir``, then ``run_pinsage_cli`` on the card (no
+    checkpoints). Writes to ``out_path`` as JSON: hashes of the artifacts, of
+    the item features the model reads, of the initial weights and of each
+    host batch in the order the sampler hands it over; each step's loss and
+    its gradients' sum and L1 norm (f64), as hex; the run's loss and
+    HITS@10. ``python3 chip_smoke.py --pinsage-leg RAW ART OUT``."""
+    import torch
+
+    from laplace_gnn_recommendation_tpu_torch.configs import preprocessing_config
+    from laplace_gnn_recommendation_tpu_torch.constants import EDGE_KEY
+    from laplace_gnn_recommendation_tpu_torch.data.preprocess_movielens import preprocess
+    from laplace_gnn_recommendation_tpu_torch.train import pinsage_pipeline as pp
+
+    rec = dict(hashseed=os.environ.get("PYTHONHASHSEED"), batches=[])
+    t0 = time.perf_counter()
+    a = preprocess(dataclasses.replace(preprocessing_config, data_size=None), raw_dir, art_dir)
+    g = a.graph
+    rec["preprocess_s"] = time.perf_counter() - t0
+    rec["artifacts"] = _sha([g.node_features[k] for k in sorted(g.node_features)]
+                            + list(g.edges[EDGE_KEY]) + [a.train_mask, a.val_mask, a.test_mask])
+    real_sample, real_make = pp.PinSAGESampler.sample_train_batch, pp.make_train_step
+    steps = []
+
+    def sample(self):
+        b = real_sample(self)
+        if b is not None:
+            rec["batches"].append(_sha(
+                [getattr(blk, f.name) for blk in b.blocks for f in dataclasses.fields(blk)]
+                + [b.pos_head, b.pos_tail, b.neg_head, b.neg_tail, b.pair_mask]))
+        return b
+
+    def make(cfg, params, item_features, *args, **kw):
+        rec["item_features"] = _sha([item_features.cpu().numpy()])
+        rec["init"] = _sha([v.cpu().numpy() for v in params.state_dict().values()])
+        step, state = real_make(cfg, params, item_features, *args, **kw)
+
+        def recorded(*batch):
+            loss = step(*batch)
+            grads = torch.cat([p.grad.flatten() for p in params.parameters()
+                               if p.grad is not None]).double()
+            steps.append(torch.stack([loss.double(), grads.sum(), grads.abs().sum()]))
+            return loss
+
+        return recorded, state
+
+    pp.PinSAGESampler.sample_train_batch, pp.make_train_step = sample, make
+    t0 = time.perf_counter()
+    out = pp.run_pinsage_cli(art_dir, device="cuda")
+    rec["cli_s"] = time.perf_counter() - t0
+    steps = torch.stack(steps).cpu().tolist()
+    rec.update(losses=[float(x[0]).hex() for x in steps],
+               grad_sums=[float(x[1]).hex() for x in steps],
+               grad_l1=[float(x[2]).hex() for x in steps],
+               loss=out["loss"], val_hits=out["val_hits"], test_hits=out["test_hits"])
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def first_difference(a, b):
+    """The first key of ``pinsage_leg``'s records where two legs differ, with
+    the first step at which a per-step list differs; None when they agree."""
+    for key in ("artifacts", "item_features", "init", "batches", "losses", "grad_sums",
+                "grad_l1", "loss", "val_hits", "test_hits"):
+        if a[key] != b[key]:
+            if isinstance(a[key], list):
+                return key, next((i for i, (x, y) in enumerate(zip(a[key], b[key])) if x != y),
+                                 min(len(a[key]), len(b[key])))
+            return key, None
+    return None
+
+
+def pinsage_repeat(raw_dir):
+    """Phase 8's artifacts leg in two fresh processes at once, one seed, with
+    string hashing seeded 0 in one and 1 in the other; every hash, step loss
+    and gradient sum must agree, and so must the loss and HITS@10."""
+    procs, legs = [], []
+    t0 = time.perf_counter()
+    for hashseed in ("0", "1"):
+        art = os.path.join(ML_DIR, f"derived_repeat_{hashseed}")
+        out = os.path.join(ML_DIR, f"repeat_{hashseed}.json")
+        env = dict(os.environ, PYTHONHASHSEED=hashseed)
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--pinsage-leg",
+                                        raw_dir, art, out], env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), out))
+    for p, out in procs:
+        text = p.communicate(timeout=600)[0]
+        if p.returncode != 0:
+            fail(f"PinSAGE repeat leg exited {p.returncode}: {text[-3000:]}")
+        with open(out) as f:
+            legs.append(json.load(f))
+    a, b = legs
+    diff = first_difference(a, b)
+    res = dict(wall_s=time.perf_counter() - t0, steps=len(a["losses"]),
+               loss=[a["loss"], b["loss"]], val_hits=[a["val_hits"], b["val_hits"]],
+               test_hits=[a["test_hits"], b["test_hits"]], artifacts=[a["artifacts"], b["artifacts"]],
+               item_features=[a["item_features"], b["item_features"]],
+               first_difference=diff, cli_s=[a["cli_s"], b["cli_s"]])
+    log("pinsage repeat across processes:", json.dumps(res))
+    if diff is not None or not a["losses"]:
+        fail(f"PinSAGE: two processes with one seed differ first at {diff}")
+    return res
+
+
 def pinsage_phase(torch, dev, record, edges):
     """Phase 8: PinSAGE at ``bench_pinsage.py``'s width on phase 3's H&M
     edges, then the artifacts path end to end."""
@@ -1223,6 +1390,12 @@ def pinsage_phase(torch, dev, record, edges):
     if not (any("[resume] from epoch 2" in m for m in logs) and resumed["completed"]
             and resumed["epochs_done"] == 3 and np.isfinite(resumed["loss"])):
         fail(f"PinSAGE: the resumed leg did not continue from epoch 2: {e2e['resumed_leg']}")
+    # the same leg in two fresh processes: equal to each other step for step,
+    # and their loss and HITS@10 equal to this process's
+    e2e["repeat"] = rep = pinsage_repeat(raw)
+    if not (rep["loss"][0] == cli["loss"] and rep["val_hits"][0] == cli["val_hits"]
+            and rep["test_hits"][0] == cli["test_hits"]):
+        fail(f"PinSAGE: another process's run differs from this one's: {rep} {cli}")
     rcfg = Config(**RANK_CFG, epochs=ML_EPOCHS, eval_every=1, save_model=True, save_every=0.5)
     model_dir = os.path.join(ML_DIR, "model")
     t0 = time.perf_counter()
@@ -1550,6 +1723,272 @@ def sharded_phase_b(torch, dev, record):
     )
     record["sharded_b"] = out
     log("phase 9b:", json.dumps(out))
+    return out
+
+
+def _descriptions(n, seed=0):
+    """Synthetic article descriptions (colour, material, garment, fit)."""
+    rng = np.random.default_rng(seed)
+    vocab = [
+        "black white red navy beige grey green pink yellow blue brown khaki".split(),
+        "cotton denim wool linen jersey satin leather knit viscose fleece".split(),
+        "dress shirt trousers sweater jacket skirt shorts top coat hoodie".split(),
+        "slim regular relaxed oversized cropped wide fitted loose".split(),
+    ]
+    picks = [rng.integers(0, len(v), n) for v in vocab]
+    return [" ".join(v[p[i]] for v, p in zip(vocab, picks)) + f" style {i % 97}"
+            for i in range(n)]
+
+
+def clip_phase(torch, dev, record):
+    """Phase 10a: CLIP embedding production at ViT-B/32 width. Returns the
+    text vectors of every article (phase 10b gives some of them to items)."""
+    from laplace_gnn_recommendation_tpu_torch.data import clip_embed as ce
+
+    out = {}
+    t_phase = time.perf_counter()
+    shutil.rmtree(CLIP_DIR, ignore_errors=True)
+    os.makedirs(CLIP_DIR)
+    t0 = time.perf_counter()
+    emb = ce.ClipEmbedder(batch_size=CLIP_BATCH, device=dev, seed=0)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in emb.model.parameters())
+    out["compute_dtype"] = str(emb.compute_dtype)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    texts = _descriptions(NUM_ITEMS)
+    images = rng.integers(0, 256, (CLIP_IMAGES, emb.image_size, emb.image_size, 3), np.uint8)
+    ids = ARTICLE_ID0 + np.arange(NUM_ITEMS)
+    out["inputs_s"] = time.perf_counter() - t0
+
+    # produce_article_embeddings as a user calls it; the npz writes and the
+    # tokenizer timed on their own
+    written, tok_s = {}, [0.0]
+    real_write, real_tok = ce.write_embeddings_npz, emb._tokenize
+
+    def timed_write(path, raw_ids, vectors):
+        t = time.perf_counter()
+        real_write(path, raw_ids, vectors)
+        written[os.path.basename(path)] = dict(vectors=vectors, s=time.perf_counter() - t)
+
+    def timed_tok(batch):
+        t = time.perf_counter()
+        r = real_tok(batch)
+        tok_s[0] += time.perf_counter() - t
+        return r
+
+    ce.write_embeddings_npz, emb._tokenize = timed_write, timed_tok
+    try:
+        for tower, kw, n in (("text", dict(texts=texts), NUM_ITEMS),
+                             ("image", dict(images=images), CLIP_IMAGES)):
+            tok_s[0] = 0.0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            ce.produce_article_embeddings(CLIP_DIR, ids[:n], embedder=emb, **kw)
+            wall = time.perf_counter() - t0
+            w = written[f"{tower}_embeddings.npz"]
+            v = w["vectors"]
+            norms = np.linalg.norm(v, axis=1)
+            path = os.path.join(CLIP_DIR, f"{tower}_embeddings.npz")
+            with np.load(path) as z:
+                files = len(z.files)
+                last = z[str(ids[n - 1])]
+            out[tower] = dict(
+                articles=n, batches=-(-n // CLIP_BATCH), wall_s=wall, npz_write_s=w["s"],
+                tokenize_s=tok_s[0], embed_s=wall - w["s"] - tok_s[0],
+                articles_per_s=n / (wall - w["s"]), npz_bytes=os.path.getsize(path),
+                peak_bytes_above_start=torch.cuda.max_memory_allocated(dev) - base,
+                finite=bool(np.isfinite(v).all()), max_norm_err=float(np.abs(norms - 1).max()))
+            if v.shape != (n, emb.proj_dim) or not out[tower]["finite"]:
+                fail(f"CLIP {tower}: bad vectors {v.shape}")
+            if out[tower]["max_norm_err"] > TOL_CLIP_NORM:
+                fail(f"CLIP {tower}: vectors not unit-norm ({out[tower]['max_norm_err']})")
+            if files != n or not np.array_equal(last, v[n - 1]):
+                fail(f"CLIP {tower}: the npz artifact holds {files} vectors, not {n}")
+    finally:
+        ce.write_embeddings_npz, emb._tokenize = real_write, real_tok
+    text_vecs = written["text_embeddings.npz"]["vectors"]
+
+    # one batch per tower on the card: device ms; bf16 against f32 (the same
+    # weights); the f32 batch's first rows against the port on the CPU
+    ids_b = emb._tokenize(texts[:CLIP_BATCH])
+    img_b = images[:CLIP_BATCH]
+    with torch.no_grad():
+        for tower, fn in (("text", lambda: emb._text_batch(ids_b)),
+                          ("image", lambda: emb._image_batch(img_b))):
+            fn()
+            out[tower]["device_ms_per_batch"], out[tower]["host_ms_per_batch"] = device_ms(
+                torch, fn, 10, f"clip {tower} batch")
+        f32 = ce.ClipEmbedder(batch_size=CLIP_BATCH, compute_dtype=torch.float32, device=dev,
+                              state_dict=emb.model.state_dict())
+        cpu = ce.ClipEmbedder(batch_size=CLIP_BATCH, compute_dtype=torch.float32, device="cpu",
+                              state_dict={k: v.cpu() for k, v in emb.model.state_dict().items()})
+        n_t, n_i = CLIP_CPU_ROWS
+        for tower, a, b, c in (
+                ("text", emb._text_batch(ids_b), f32._text_batch(ids_b),
+                 cpu._text_batch(ids_b[:n_t])),
+                ("image", emb._image_batch(img_b), f32._image_batch(img_b),
+                 cpu._image_batch(img_b[:n_i]))):
+            cos = float((a * b).sum(1).min())
+            b_cpu = b[: c.shape[0]].cpu()
+            rel = float((b_cpu - c).norm() / c.norm())
+            out[tower].update(bf16_vs_f32_min_cosine=cos, f32_vs_cpu_rel_l2=rel,
+                              cpu_rows=int(c.shape[0]))
+            if not cos >= TOL_CLIP_COS:
+                fail(f"CLIP {tower}: bf16 against f32 cosine {cos} < {TOL_CLIP_COS}")
+            if not rel <= TOL_CLIP_CPU:
+                fail(f"CLIP {tower}: f32 on the card against the CPU rel L2 {rel} > "
+                     f"{TOL_CLIP_CPU}")
+    del f32, cpu, emb, images
+    shutil.rmtree(CLIP_DIR, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log("phase 10a clip:", json.dumps(out))
+    record["clip"] = out
+    return text_vecs
+
+
+def store_phase(torch, dev, record, text_vecs):
+    """Phase 10b: the store-backed ranking stack, then the store sampler's
+    batches/s against the native sampler's."""
+    from laplace_gnn_recommendation_tpu_torch import _build
+    from laplace_gnn_recommendation_tpu_torch.configs import Config
+    from laplace_gnn_recommendation_tpu_torch.constants import EDGE_KEY, NODE_ITEM, NODE_USER
+    from laplace_gnn_recommendation_tpu_torch.data.link_pred_data import (
+        create_link_pred_data, create_samplers)
+    from laplace_gnn_recommendation_tpu_torch.data.splitting import train_test_split_by_time
+    from laplace_gnn_recommendation_tpu_torch.data.store_sampler import (
+        GraphStoreSampler, InMemoryGraphStore)
+    from laplace_gnn_recommendation_tpu_torch.data.synthetic import random_hetero_graph
+    from laplace_gnn_recommendation_tpu_torch.train import encdec_pipeline as ep
+
+    def store_of(g):
+        """The graph's buys edges in a store, each under its split's
+        relationship type (the bulk-import encoding)."""
+        s, d = g.edges[EDGE_KEY]
+        tr, va, _ = train_test_split_by_time(np.asarray(s, np.int64))
+        split = np.where(tr, 0, np.where(va, 1, 2))
+        return InMemoryGraphStore({NODE_USER: NODE_USER, NODE_ITEM: NODE_ITEM},
+                                  {EDGE_KEY: (s, d)}, {EDGE_KEY: split})
+
+    out = {}
+    t_phase = time.perf_counter()
+    g = random_hetero_graph(seed=1, num_users=STORE_USERS, num_items=STORE_ITEMS,
+                            avg_degree=RANK_DEGREE, num_user_features=2, num_item_features=2,
+                            feature_cardinality=RANK_FEATURE_CARD)
+    g.node_features_float = {NODE_ITEM: np.ascontiguousarray(text_vecs[:STORE_ITEMS])}
+    cfg = Config(**RANK_CFG, epochs=STORE_EPOCHS, eval_every=1)
+    data = create_link_pred_data(g, cfg, device=dev)
+    legs = []
+    for _ in range(2):
+        store = store_of(g)
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        stats = ep.run_pipeline(cfg, data, log_fn=lambda *_: None, randomization=False,
+                                graph_store=store, device=dev)
+        torch.cuda.synchronize()
+        legs.append(dict(wall_s=time.perf_counter() - t0, loss_curve=stats.loss_curve,
+                         loss=stats.loss, val_recall_at_12=stats.recall_val,
+                         test_recall_at_12=stats.recall_test,
+                         test_precision_at_12=stats.precision_test,
+                         queries_served=store.queries_served, truncations=stats.truncations,
+                         launches=dict(_build.launches)))
+    a, b = legs
+    out.update(graph=dict(users=STORE_USERS, items=STORE_ITEMS,
+                          edges=int(len(g.edges[EDGE_KEY][0])),
+                          item_float_dim=int(text_vecs.shape[1])),
+               runs=legs, same_seed_equal=a["loss_curve"] == b["loss_curve"]
+               and a["test_recall_at_12"] == b["test_recall_at_12"])
+    log("phase 10b run_pipeline(graph_store=):", json.dumps(out))
+    if not out["same_seed_equal"]:
+        fail(f"store-backed run_pipeline: two runs of one seed differ: {a} {b}")
+    if (len(a["loss_curve"]) != STORE_EPOCHS or not np.isfinite(a["loss_curve"]).all()
+            or a["queries_served"] == 0 or a["queries_served"] != b["queries_served"]):
+        fail(f"store-backed run_pipeline: {a}")
+    if any(a["launches"].values()):
+        fail(f"store-backed run_pipeline launched kernels: {a['launches']}")
+    del data
+
+    # batches/s on phase 7's graph: the store sampler against the native one
+    t0 = time.perf_counter()
+    gb = random_hetero_graph(seed=0, num_users=RANK_USERS, num_items=RANK_ITEMS,
+                             avg_degree=RANK_DEGREE, num_user_features=2, num_item_features=2,
+                             feature_cardinality=RANK_FEATURE_CARD)
+    bcfg = Config(**RANK_CFG)
+    bdata = create_link_pred_data(gb, bcfg, device=dev)
+    store = store_of(gb)
+    samplers = dict(native=create_samplers(bcfg, bdata, seed=0)[0],
+                    store=create_samplers(bcfg, bdata, seed=0, graph_store=store)[0])
+    if samplers["native"]._native is None or not isinstance(samplers["store"], GraphStoreSampler):
+        fail("phase 10b: the samplers are not the native and the store-backed one")
+    rate = dict(setup_s=time.perf_counter() - t0)
+    rng = np.random.default_rng(0)
+    for name, n, seeds in (("native", STORE_NATIVE_BATCHES, bcfg.batch_size),
+                           ("store", 1, STORE_BATCH_SEEDS)):
+        smp = samplers[name]
+        t0 = time.perf_counter()
+        for _ in range(n):
+            smp.sample_batch(rng.integers(0, RANK_USERS, seeds))
+        wall = time.perf_counter() - t0
+        rate[name] = dict(batches=n, seeds_per_batch=seeds, batches_per_s=n / wall,
+                          seeds_per_s=n * seeds / wall)
+    rate.update(store_queries=store.queries_served,
+                store_edges=int(len(gb.edges[EDGE_KEY][0])))
+    out["batches_per_s"] = rate
+    out["wall_s"] = time.perf_counter() - t_phase
+    log("phase 10b sampler batches/s:", json.dumps(rate))
+    record["store"] = out
+    return out
+
+
+def hpo_phase(torch, dev, record, data):
+    """Phase 10c: successive halving over LightGCN through kernel A, each
+    trial resuming its own checkpoint from its trial directory."""
+    from laplace_gnn_recommendation_tpu_torch import _build
+    from laplace_gnn_recommendation_tpu_torch.configs import LightGCNConfig
+    from laplace_gnn_recommendation_tpu_torch.train import hpo, lightgcn_pipeline
+
+    shutil.rmtree(HPO_DIR, ignore_errors=True)
+    base = LightGCNConfig(**TRAIN_CFG, eval_every=HPO_RUNGS[0])
+    logs, walls = {}, []
+
+    def objective(cfg, budget, trial_dir):
+        cfg = dataclasses.replace(cfg, epochs=budget, artifact_dir=trial_dir, resume=True,
+                                  checkpoint_every=max(1, budget - 1))
+        msgs = []
+        t0 = time.perf_counter()
+        stats = lightgcn_pipeline.train(cfg, data, export=False, log_fn=msgs.append,
+                                        device=dev)
+        walls.append(time.perf_counter() - t0)
+        logs.setdefault(os.path.basename(trial_dir), []).append(
+            [m for m in msgs if "Resuming" in m])
+        return stats.loss   # the last step's BPR loss (val recall sits at its floor this early)
+
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    res = hpo.run_successive_halving(objective, base,
+                                     param_sets=[{"learning_rate": lr} for lr in HPO_LRS],
+                                     rungs=HPO_RUNGS, eta=HPO_ETA, work_dir=HPO_DIR,
+                                     log_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    out = dict(wall_s=time.perf_counter() - t0, trial_walls_s=walls, launches=dict(_build.launches),
+               best=res["best"], best_value=res["best_value"], history=res["history"],
+               resume_logs=logs)
+    shutil.rmtree(HPO_DIR, ignore_errors=True)
+    log("phase 10c hpo:", json.dumps(out))
+    rung2 = [h for h in res["history"] if h["rung"] == 1]
+    # rung 1 ran 10 steps and saved at step 9; rung 2 resumes at step 10
+    resumed = [logs[f"trial_{h['trial']}"][1] for h in rung2]
+    if len(rung2) != len(HPO_LRS) // HPO_ETA or not all(
+            any(f"iteration {HPO_RUNGS[0]}" in m for m in r) for r in resumed):
+        fail(f"HPO: the second rung did not resume its trials: {logs}")
+    if not np.isfinite(res["best_value"]):
+        fail(f"HPO: the best trial's value is not finite: {res['best_value']}")
+    if not out["launches"].get("segsum"):
+        fail("HPO: kernel A did not launch")
+    record["hpo"] = out
     return out
 
 
@@ -2037,6 +2476,9 @@ def main() -> int:
 
     # ---- 9a. the sharded tier on one NCCL rank, on phase 5's graph ----------
     sharded_a = sharded_phase_a(torch, dev, record, graph, modes["f32"])
+
+    # ---- 10c. successive halving through kernel A, on phase 5's graph ------
+    hpo = hpo_phase(torch, dev, record, data)
     del data, graph, prop, params, modes
 
     # ---- 6. the dense tier; 7. the ranking stack; 8. PinSAGE ----------------
@@ -2047,6 +2489,9 @@ def main() -> int:
 
     # ---- 9b. two ranks sharing the card over gloo ---------------------------
     sharded_b = sharded_phase_b(torch, dev, record)
+
+    # ---- 10a. CLIP production; 10b. the store-backed ranking stack ----------
+    store = store_phase(torch, dev, record, clip_phase(torch, dev, record))
 
     def pinsage_launches(key):
         return pinsage["launches"].get(key, 0) + pinsage["artifacts_path"]["launches"].get(key, 0)
@@ -2068,6 +2513,9 @@ def main() -> int:
             train_1x2_30_steps_per_rank=[r["train_launches"] for r in sharded_b["ranks"]],
             train_2x1_30_steps_per_rank=[r["dp"]["train_launches"] for r in sharded_b["ranks"]],
         ),
+        hpo_launches=hpo["launches"].get("segsum", 0),
+        hpo_train_steps=sum(HPO_RUNGS[0] if h["rung"] == 0 else HPO_RUNGS[1] - HPO_RUNGS[0]
+                            for h in hpo["history"]),
         sharded_forward_device_ms=sharded_a["forward_device_ms"],
         sharded_train_step_device_ms=sharded_a["train_step_device_ms"],
     )
@@ -2102,8 +2550,15 @@ def main() -> int:
         by_k_ms={k_c: c_by_k[k_c]["device_ms"] for k_c in sorted(c_by_k)},
         pinsage_launches=pinsage_launches("topk_int8"),
     )
-    # phase 9's records again here, where the end of the output keeps them
+    # phase 9's and 10's records again here, where the end of the output keeps them
     log("phase 9:", json.dumps(dict(a=sharded_a, b=sharded_b)))
+    log("phase 10:", json.dumps(dict(
+        clip={t: {k: v for k, v in record["clip"][t].items()} for t in ("text", "image")},
+        store=dict(runs=[{k: r[k] for k in ("wall_s", "loss", "test_recall_at_12",
+                                            "queries_served")} for r in store["runs"]],
+                   batches_per_s=store["batches_per_s"], wall_s=store["wall_s"]),
+        hpo={k: hpo[k] for k in ("wall_s", "best", "best_value", "launches")},
+        clip_wall_s=record["clip"]["wall_s"])))
     record["kernels"] = list(kern.values())
     log(json.dumps({"kernels": record["kernels"]}))
     log(smi)
@@ -2114,4 +2569,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pinsage-leg"]:
+        pinsage_leg(*sys.argv[2:5])
+        sys.exit(0)
     sys.exit(main())

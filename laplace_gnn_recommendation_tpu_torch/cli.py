@@ -3,10 +3,15 @@
 field plus a ``--type`` dispatch:
 
     python -m laplace_gnn_recommendation_tpu_torch.cli --type preprocess
+    python -m laplace_gnn_recommendation_tpu_torch.cli --type preprocess_fashion
     python -m laplace_gnn_recommendation_tpu_torch.cli --type lightgcn
     python -m laplace_gnn_recommendation_tpu_torch.cli --type encoder
     python -m laplace_gnn_recommendation_tpu_torch.cli --type submission
+    python -m laplace_gnn_recommendation_tpu_torch.cli --type hpo
     python -m laplace_gnn_recommendation_tpu_torch.cli --type pinsage
+
+``preprocess_fashion`` reads the H&M parquet files through pandas (and a
+parquet engine such as pyarrow); the other types need torch and numpy only.
 
 On a multi-GPU host the training types run one process per card under
 ``torchrun``, on the mesh the axis flags give:
@@ -32,14 +37,6 @@ from .configs import (
     link_pred_config,
     preprocessing_config,
 )
-
-# --type values whose modules belong to the periphery still to be ported
-# (the ROADMAP's queue A item for the rest of the periphery)
-NOT_PORTED = {
-    "preprocess_fashion": "data/preprocess_fashion.py",
-    "hpo": "train/hpo.py",
-}
-
 
 def run() -> None:
     parser = argparse.ArgumentParser(description="laplace_gnn_recommendation_tpu_torch")
@@ -67,13 +64,13 @@ def run() -> None:
     add_dataclass_args(parser, lightgcn_config)
     args, _ = parser.parse_known_args()
 
-    if args.type in NOT_PORTED:
-        raise NotImplementedError(
-            f"--type {args.type} needs {NOT_PORTED[args.type]}, which belongs to the "
-            "periphery not yet ported (ROADMAP queue A, the rest of the periphery)"
-        )
     if args.type == "preprocess":
         from .data.preprocess_movielens import preprocess
+
+        preprocess(preprocessing_config, args.raw_dir, args.artifact_dir)
+        return
+    if args.type == "preprocess_fashion":
+        from .data.preprocess_fashion import preprocess
 
         preprocess(preprocessing_config, args.raw_dir, args.artifact_dir)
         return
@@ -121,6 +118,10 @@ def run() -> None:
             {str(k): v for k, v in artifacts.article_id_map_forward.items()},
             model_dir=args.model_dir,
         )
+    elif args.type == "hpo":
+        from .train.hpo import run_hpo
+
+        run_hpo(args.artifact_dir, device=dev)
     elif args.type == "pinsage":
         from .train.pinsage_pipeline import run_pinsage_cli
 

@@ -221,10 +221,19 @@ def _probe_budgets(cfg, data, budgets, seed, randomization):
 
 def create_samplers(
     cfg: Config, data: LinkPredData, seed: int = 0, randomization: bool = True,
+    graph_store=None,
 ) -> Tuple[SubgraphSampler, SubgraphSampler, SubgraphSampler]:
     """(train, val, test) samplers sharing one budget set, so every batch of
     a run has the same shapes (reference ``create_dataloaders``,
-    ``data/data_loader.py:14-65``)."""
+    ``data/data_loader.py:14-65``).
+
+    ``graph_store`` switches the neighbourhood source to a DB backend — the
+    reference's ``config.neo4j`` selector (``data/data_loader.py:17``): any
+    ``Database``-compatible object (``graph_store.Database`` against a
+    server, or ``store_sampler.InMemoryGraphStore``). Positives still come
+    from the split CSRs, as the reference reads its adjacency artifacts
+    beside the DB; the budgets are not probed (a probe would query the
+    store)."""
     max_deg = max(
         int(adj.user_csr.degrees.max(initial=1)) for adj in data.splits.values()
     )
@@ -232,15 +241,19 @@ def create_samplers(
         cfg, max_deg, max(len(m) for m in data.matchers.values()),
         num_users=data.num_users, num_items=data.num_items,
     )
-    if cfg.budget_probe:
+    if cfg.budget_probe and graph_store is None:
         budgets = _probe_budgets(cfg, data, budgets, seed, randomization)
 
     def make(split: str, train: bool, matchers, seed_off: int):
         adj = data.splits[split]
-        return SubgraphSampler(
-            cfg, adj.user_csr, adj.item_csr, train=train, matchers=matchers,
-            randomization=randomization, seed=seed + seed_off, budgets=budgets,
-        )
+        common = dict(train=train, matchers=matchers, randomization=randomization,
+                      seed=seed + seed_off, budgets=budgets)
+        if graph_store is not None:
+            from .store_sampler import GraphStoreSampler
+
+            return GraphStoreSampler(cfg, graph_store, adj.user_csr, adj.item_csr,
+                                     split_type=split, **common)
+        return SubgraphSampler(cfg, adj.user_csr, adj.item_csr, **common)
 
     return (
         make("train", True, None, 0),

@@ -1,6 +1,9 @@
 """MovieLens-1M preprocessing: ``.dat`` files → graph artifacts — the port's
 copy of the JAX package's ``data/preprocess_movielens.py``, so both packages
-write identical artifacts from the same files.
+write identical artifacts from the same files, up to the order of the genre
+columns: the JAX package takes it from a set of strings, whose order changes
+with the process's hashing (``PYTHONHASHSEED``); the port takes the file's
+order of first appearance, the same in every process.
 
 Reproduces reference ``run_preprocessing.py:28-195`` exactly: `::`-delimited
 parsing, genre one-hot expansion + year extraction from titles
@@ -50,7 +53,10 @@ def parse_movies(path: str) -> Dict[str, np.ndarray]:
         years.append(title[-5:-1])
         ids.append(int(id_))
         genre_sets.append(gset)
-        for g in gset:
+        # columns in the file's order of first appearance: a set's order
+        # follows the process's string hashing, so it would change the
+        # feature columns (and a seed's training) from one process to the next
+        for g in genres.split("|"):
             if g not in all_genres:
                 all_genres.append(g)
     columns = {"article_id": np.array(ids, np.int64), "year": np.array(years)}

@@ -69,10 +69,12 @@ def _dryrun_rank(device):
     import torch.distributed as dist
 
     from .configs import Config, LightGCNConfig
+    from .constants import EDGE_KEY, NODE_ITEM, NODE_USER
     from .data.graph import HostCSR
     from .data.lightgcn_data import create_lightgcn_data
     from .data.link_pred_data import create_link_pred_data
     from .data.pinsage_data import PinSAGEData
+    from .data.store_sampler import InMemoryGraphStore
     from .data.synthetic import random_bipartite_edges, random_hetero_graph
     from .parallel.mesh import DATA_AXIS, build_mesh
     from .serving import RetrievalServer
@@ -144,9 +146,17 @@ def _dryrun_rank(device):
 
             shutil.rmtree(tmp, ignore_errors=True)
 
-    # The DB-backed surface (run_pipeline(graph_store=...)) waits for
-    # data/graph_store.py and data/store_sampler.py, still to be ported.
-    out["graph_store"] = "not ported"
+    # the DB-backed ranking stack: the same run_pipeline with the sampler
+    # answering its neighbourhood Cypher from a graph store (the reference's
+    # config.neo4j flow) on the same mesh
+    s_, d_ = hg.edges[EDGE_KEY]
+    store = InMemoryGraphStore({NODE_USER: NODE_USER, NODE_ITEM: NODE_ITEM},
+                               {EDGE_KEY: (s_, d_)}, {EDGE_KEY: np.zeros(len(s_), np.int64)})
+    sstats = encdec_pipeline.run_pipeline(ecfg, ldata, log_fn=quiet, randomization=False,
+                                          mesh=mesh, graph_store=store)
+    assert np.isfinite(sstats.loss), sstats
+    assert store.queries_served > 0
+    out["graph_store"] = dict(loss=sstats.loss, queries_served=store.queries_served)
 
     # PinSAGE: the public train() with the pairs split over data and the
     # distributed HITS@k
@@ -185,11 +195,12 @@ def dryrun_multichip(n_devices: int, device=None, backend=None, timeout: float =
     tables, sharded SpMM through kernel A, the DP-split BPR batch,
     distributed-top-k eval and export), ``RetrievalServer.recommend()`` on
     the exported tables, ``encdec_pipeline.run_pipeline()`` (row-sharded
-    feature tables, the DP label grid), ``submission_pipeline()``, and
-    PinSAGE ``train()``. The DB-backed surface waits for the graph store's
-    port. ``device`` None puts rank r on ``cuda:r`` over NCCL; ``"cpu"``
-    runs over gloo; ``backend`` overrides (two ranks can share one card
-    over gloo). Returns each rank's results."""
+    feature tables, the DP label grid), ``submission_pipeline()``, the same
+    ``run_pipeline()`` with its neighbourhoods from an ``InMemoryGraphStore``
+    (``graph_store=``), and PinSAGE ``train()``. ``device`` None puts rank
+    r on ``cuda:r`` over NCCL; ``"cpu"`` runs over gloo; ``backend``
+    overrides (two ranks can share one card over gloo). Returns each
+    rank's results."""
     from .parallel.spawn import run_ranks
 
     if backend is None:

@@ -10,7 +10,9 @@ the GIL for the length of every call, which is what lets
 
 Bound here: ``nhop_sample``, ``assemble_train_batch``,
 ``common_items_matches``, ``pinsage_frontier`` and ``walk_step`` (JAX
-``native/__init__.py:178-342``).
+``native/__init__.py:178-342``). :func:`run_sanitizer_check` builds the
+library's source with the standalone driver ``sanitize_check.cpp`` under
+ASAN+UBSAN or TSAN and runs it.
 """
 from __future__ import annotations
 
@@ -131,6 +133,40 @@ def lib() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return lib() is not None
+
+
+_SANITIZE_FLAGS = {
+    "asan": ["-fsanitize=address,undefined", "-fno-sanitize-recover=all"],
+    # libgomp is not TSAN-instrumented (its fork-join hand-off reads as a
+    # race on the capture struct); the TSAN build swaps the OpenMP regions
+    # for the std::thread pool in sampler.cpp, which TSAN sees whole
+    "tsan": ["-fsanitize=thread", "-DSAMPLER_STD_THREADS"],
+}
+
+
+def run_sanitizer_check(mode: str = "asan", timeout: float = 600.0) -> Tuple[bool, str]:
+    """Build ``sampler.cpp`` + ``sanitize_check.cpp`` under a sanitizer and
+    run the driver: the parallel BFS, repeated batch assembly over the shared
+    generation-stamped scratch, the PinSAGE frontier and the walk step (JAX
+    ``native/__init__.py:109-158``).
+
+    ``mode``: ``asan`` (ASAN+UBSAN) or ``tsan`` (the parallel paths on the
+    std::thread pool). Returns (ok, output). A standalone binary, not an
+    LD_PRELOAD into Python, so the runtimes initialize cleanly and the
+    threads run as in production."""
+    flags = _SANITIZE_FLAGS[mode]
+    exe = os.path.join(os.path.dirname(library_path()), f"sanitize_check_{mode}")
+    os.makedirs(os.path.dirname(exe), exist_ok=True)
+    cmd = ["g++", "-O1", "-g", "-fopenmp", "-fPIC", *flags, SOURCE,
+           os.path.join(_DIR, "sanitize_check.cpp"), "-o", exe]
+    build = subprocess.run(cmd, capture_output=True, text=True)
+    if build.returncode != 0:
+        return False, f"build failed:\n{build.stderr}"
+    env = dict(os.environ)
+    env.setdefault("ASAN_OPTIONS", "detect_leaks=1")
+    env.setdefault("OMP_NUM_THREADS", "4")   # bounds TSAN's shadow memory
+    run = subprocess.run([exe], capture_output=True, text=True, timeout=timeout, env=env)
+    return run.returncode == 0, run.stdout + run.stderr
 
 
 def _require() -> ctypes.CDLL:

@@ -11,6 +11,9 @@ list, written as ``index_add_``:
 Pad slots carry w = 0, so they add nothing. On the card ``index_add_``
 accumulates with float atomics, so its low bits may change from run to run;
 the segment-sum kernel (``ops/spmm_pallas.py``) is the deterministic tier.
+
+:func:`segment_mean` and :func:`segment_max` are the JAX module's
+aggregation helpers (``ops/spmm.py:81-109``): empty segments give 0.
 """
 from __future__ import annotations
 
@@ -49,3 +52,28 @@ def lightgcn_propagate(
     return multiscale_loop(
         propagate_bipartite, g, user_emb0, item_emb0, num_iterations
     )
+
+
+def segment_mean(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+    indices_are_sorted: bool = False,
+) -> torch.Tensor:
+    """Mean of ``data``'s rows per segment (the sum over the count, the
+    count held at ≥ 1, so an empty segment gives 0). ``indices_are_sorted``
+    is accepted for the JAX signature and changes nothing."""
+    idx = segment_ids.long()
+    s = data.new_zeros((num_segments,) + data.shape[1:]).index_add_(0, idx, data)
+    cnt = data.new_zeros((num_segments, 1)).index_add_(0, idx, data.new_ones((data.shape[0], 1)))
+    return s / torch.clamp(cnt, min=1.0).reshape((num_segments,) + (1,) * (data.dim() - 1))
+
+
+def segment_max(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+    indices_are_sorted: bool = False,
+) -> torch.Tensor:
+    """Maximum of ``data``'s rows per segment; an empty segment (or any
+    non-finite maximum) gives 0, torch_scatter's fill for empty rows."""
+    idx = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    m = data.new_full((num_segments,) + data.shape[1:], float("-inf")).scatter_reduce_(
+        0, idx, data, reduce="amax", include_self=True)
+    return torch.where(torch.isfinite(m), m, torch.zeros_like(m))

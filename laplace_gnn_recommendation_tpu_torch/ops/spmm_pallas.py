@@ -53,7 +53,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, resolve_device
 from ..data.graph import BipartiteGraph
 from .multiscale import dense_cotangent, self_adjoint_multiscale
 
@@ -299,22 +299,57 @@ class PallasGraph:
         ``width`` elements (2 bytes each with ``gather_bf16``, else 4).
         ``l2_bytes`` defaults to the card's L2 for a graph on the card and
         to 0 (one window) for a CPU graph; ``width`` 0 means one window."""
+        return PallasGraph._from_sorted(g.host_arrays(), g.num_users, g.num_items, g.device,
+                                        edges_per_piece, width, gather_bf16, l2_bytes)
+
+    @staticmethod
+    def from_host_edges(
+        user_idx: np.ndarray,
+        item_idx: np.ndarray,
+        num_users: int,
+        num_items: int,
+        edges_per_piece: int = EDGES_PER_PIECE,
+        width: int = 0,
+        gather_bf16: bool = False,
+        l2_bytes: Optional[int] = None,
+        device="cuda",
+    ) -> "PallasGraph":
+        """Plans straight from host (user, item) edge arrays, with no
+        :class:`BipartiteGraph` (JAX ``spmm_pallas.py:225-251``): the
+        symmetric normalisation 1/√(deg(u)·deg(i)) and both sort orders in
+        numpy, as ``BipartiteGraph.from_edges`` computes them, so the plans
+        equal :meth:`from_graph`'s for the same edges."""
+        dev = resolve_device(device)
+        user_idx = np.asarray(user_idx, np.int64)
+        item_idx = np.asarray(item_idx, np.int64)
+        du = np.bincount(user_idx, minlength=num_users)[user_idx].astype(np.float64)
+        di = np.bincount(item_idx, minlength=num_items)[item_idx].astype(np.float64)
+        w = (1.0 / np.sqrt(np.maximum(du * di, 1.0))).astype(np.float32)
+        um = np.lexsort((item_idx, user_idx))
+        im = np.lexsort((user_idx, item_idx))
+        arrays = (user_idx[um], item_idx[um], w[um], user_idx[im], item_idx[im], w[im])
+        return PallasGraph._from_sorted(arrays, num_users, num_items, dev, edges_per_piece,
+                                        width, gather_bf16, l2_bytes)
+
+    @staticmethod
+    def _from_sorted(arrays, num_users, num_items, device, edges_per_piece, width,
+                     gather_bf16, l2_bytes) -> "PallasGraph":
+        """Plans from (user, item, w) in user-major order and again in
+        item-major order (host arrays), on ``device``."""
         if l2_bytes is None:
-            l2_bytes = (
-                torch.cuda.get_device_properties(g.device).L2_cache_size
-                if g.device.type == "cuda" else 0
-            )
+            l2_bytes = (torch.cuda.get_device_properties(device).L2_cache_size
+                        if device.type == "cuda" else 0)
         row_bytes = int(width) * (2 if gather_bf16 else 4)
         window_rows = int(L2_WINDOW_SHARE * l2_bytes) // row_bytes if row_bytes else 0
-        eu, ei, ew, eu_im, ei_im, ew_im = g.host_arrays()
+        eu, ei, ew, eu_im, ei_im, ew_im = arrays
         return PallasGraph(
             to_user=PallasSegmentPlan.from_edges(
-                eu, ei, ew, g.num_users, edges_per_piece, g.device,
-                num_src_rows=g.num_items, window_rows=window_rows,
+                eu, ei, ew, num_users, edges_per_piece, device,
+                num_src_rows=num_items, window_rows=window_rows,
             ),
             to_item=PallasSegmentPlan.from_edges(
-                ei_im, eu_im, ew_im, g.num_items, edges_per_piece, g.device,
-                num_src_rows=g.num_users, window_rows=window_rows,
+                ei_im, eu_im, ew_im, num_items, edges_per_piece, device,
+                num_src_rows=num_users, window_rows=window_rows,
             ),
             gather_bf16=bool(gather_bf16),
         )

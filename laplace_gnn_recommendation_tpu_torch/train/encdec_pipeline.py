@@ -179,10 +179,14 @@ def run_pipeline(
     resume: bool = False,
     device="cuda",
     mesh=None,
+    graph_store=None,
 ):
     """Full training run (JAX ``:176-407``, reference ``run_pipeline.py:
     24-153``) on the device of ``data``'s tables, which must be the
     ``device`` asked for (the card by default).
+
+    ``graph_store`` selects the DB-backed sampler (the reference's
+    ``config.neo4j`` switch): see ``data/link_pred_data.create_samplers``.
 
     Checkpoints (``model_dir/model_<epoch>.npz``, ``model_final.npz``) hold
     params, bn state, Adam state and epoch under the JAX package's keys, so
@@ -209,7 +213,7 @@ def run_pipeline(
 
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     train_s, val_s, test_s = create_samplers(
-        cfg, data, seed=cfg.seed, randomization=randomization,
+        cfg, data, seed=cfg.seed, randomization=randomization, graph_store=graph_store,
     )
     params, bn_state = sage.init_sage_params(
         cfg, sage.get_feature_info(data.graph), float_dims=data.float_dims(),

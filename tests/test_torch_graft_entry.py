@@ -2,7 +2,8 @@
 graft_entry.py``): ``entry()``'s loss against the JAX
 ``__graft_entry__.entry()`` on the same arguments (rtol 1e-5: f32 sums in
 another order), and ``dryrun_multichip(4)`` — the public pipelines on a 2×2
-mesh of four spawned gloo ranks on the CPU."""
+mesh of four spawned gloo ranks on the CPU, the store-backed ranking stack
+among them (its sampler's queries answered by an ``InMemoryGraphStore``)."""
 import numpy as np
 import pytest
 
@@ -30,9 +31,13 @@ def test_dryrun_multichip_4():
     assert len(ranks) == 4
     first = ranks[0]
     assert first["mesh"] == (2, 2)
-    assert first["graph_store"] == "not ported"
     for r in ranks:
         for key in ("lightgcn_loss", "encdec_loss", "pinsage_loss"):
             assert np.isfinite(r[key]) and r[key] == first[key], key
+        # every rank samples the whole batch from the one seed, so each
+        # rank's store answers the same queries
+        assert r["graph_store"]["queries_served"] > 0
+        assert r["graph_store"] == first["graph_store"]
+        assert np.isfinite(r["graph_store"]["loss"])
         np.testing.assert_array_equal(r["retrieval"], first["retrieval"])
         assert (r["retrieval"] < 301).all() and r["submission_rows"] > 0

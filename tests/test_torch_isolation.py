@@ -1,6 +1,9 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
-package, its kernel modules import without ``nvcc`` or a card, its entry
-points default to the card and raise where there is none, and
+package (nor, when a module is imported, the optional libraries its
+periphery loads inside functions: pandas, pyarrow, transformers,
+matplotlib, networkx, neo4j, optuna), its kernel modules import without
+``nvcc`` or a card, its entry points default to the card and raise where
+there is none, and
 ``chip_smoke.py`` refuses to report a result without a card or outside a
 checkout."""
 import os
@@ -43,6 +46,9 @@ def test_package_imports_no_jax():
         "             or n.startswith('laplace_gnn_recommendation_tpu.'))\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
+        "lazy = ('pandas', 'pyarrow', 'transformers', 'matplotlib', 'networkx', 'neo4j',\n"
+        "        'optuna')\n"
+        "assert not [n for n in lazy if n in sys.modules], 'optional library imported'\n"
         "from laplace_gnn_recommendation_tpu_torch import native\n"
         "assert not native._state  # the sampler library builds at first use\n"
         "print('ok', len(sys.modules))\n"
@@ -67,6 +73,19 @@ def test_multi_gpu_modules_are_covered():
                 with open(os.path.join(dirpath, fname)) as f:
                     src = f.read()
                 assert "multi-GPU slice" not in src, fname
+
+
+def test_periphery_modules_are_covered():
+    """Every module of the JAX package's periphery has its counterpart in the
+    port (so the import check above covers them)."""
+    mods = set(_modules())
+    for name in ("data.graph_store", "data.store_sampler", "data.clip_embed",
+                 "data.preprocess_fashion", "data.pandas_builder", "data.download",
+                 "train.hpo", "utils.profiling", "utils.tensor", "utils.visualize"):
+        assert f"{port.__name__}.{name}" in mods, name
+    from laplace_gnn_recommendation_tpu_torch import cli
+
+    assert not hasattr(cli, "NOT_PORTED")
 
 
 def test_importing_builds_nothing():
@@ -185,6 +204,12 @@ ENTRY_POINTS = {
     "graft_entry.entry": lambda: __import__(
         "laplace_gnn_recommendation_tpu_torch.graft_entry", fromlist=["x"]
     ).entry(),
+    "ClipEmbedder": lambda: __import__(
+        "laplace_gnn_recommendation_tpu_torch.data.clip_embed", fromlist=["x"]
+    ).ClipEmbedder(batch_size=2),
+    "PallasGraph.from_host_edges": lambda: __import__(
+        "laplace_gnn_recommendation_tpu_torch.ops.spmm_pallas", fromlist=["x"]
+    ).PallasGraph.from_host_edges(np.array([0]), np.array([0]), 1, 1),
     "RetrievalServer.quantized": lambda: __import__(
         "laplace_gnn_recommendation_tpu_torch.serving", fromlist=["x"]
     ).RetrievalServer(np.zeros((3, 2)), np.zeros((4, 2)), k=2, quantized=True),

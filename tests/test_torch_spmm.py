@@ -383,3 +383,66 @@ def test_window_size_follows_l2_and_mode(gather_bf16, l2_bytes, windows):
     rows = int(tsp.L2_WINDOW_SHARE * l2_bytes) // row_bytes
     assert pg.to_item.window_rows == (rows if 0 < rows < 70 else 0)
     assert pg.to_item.num_windows == windows and pg.gather_bf16 == gather_bf16
+
+
+@pytest.mark.parametrize("width,gather_bf16,l2_bytes", [(0, False, None), (16, False, 4096),
+                                                        (16, True, 2048)])
+def test_from_host_edges_equals_from_graph(width, gather_bf16, l2_bytes):
+    """Kernel A's operand built straight from host edge arrays (JAX
+    ``PallasGraph.from_host_edges``) is the one ``from_graph`` builds from a
+    ``BipartiteGraph`` of the same edges, plan field for plan field, so the
+    plain forward gives the same bits; and it matches the JAX operand's
+    forward."""
+    U, I, D, K = 60, 45, 16, 3
+    rng = np.random.default_rng(7)
+    eu, ei = rng.integers(0, U, 700), rng.integers(0, I, 700)
+    kw = dict(width=width, gather_bf16=gather_bf16, l2_bytes=l2_bytes)
+    a = tsp.PallasGraph.from_host_edges(eu, ei, U, I, device="cpu", **kw)
+    b = tsp.PallasGraph.from_graph(BipartiteGraph.from_edges(eu, ei, U, I, device="cpu"), **kw)
+    for direction in ("to_user", "to_item"):
+        pa, pb = vars(getattr(a, direction)), vars(getattr(b, direction))
+        assert pa.keys() == pb.keys()
+        for k in pa:
+            if isinstance(pa[k], torch.Tensor):
+                assert torch.equal(pa[k], pb[k]), (direction, k)
+            else:
+                assert pa[k] == pb[k], (direction, k)
+    assert a.gather_bf16 == b.gather_bf16 == gather_bf16
+    ue = (rng.normal(size=(U, D)) * 0.1).astype(np.float32)
+    ie = (rng.normal(size=(I, D)) * 0.1).astype(np.float32)
+    params = lightgcn_params_from_jax(ue, ie, device="cpu")
+    out_a, out_b = lightgcn_forward(params, a, K), lightgcn_forward(params, b, K)
+    for x, y in zip(out_a, out_b):
+        assert torch.equal(x, y)
+    if not gather_bf16:
+        ref = j_forward(JParams(ue, ie), jsp.PallasGraph.from_host_edges(eu, ei, U, I), K)
+        for x, y in zip(out_a, ref):
+            np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=0, atol=HOPS_ATOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segment_mean_max_match_jax(seed):
+    """``ops/spmm.segment_mean`` and ``segment_max`` against the JAX helpers:
+    empty segments (among them the last) give 0, not a division by zero or
+    -inf; f32 sums of a few rows in another order (rtol 1e-6), maxima exact."""
+    from laplace_gnn_recommendation_tpu.ops import spmm as jspmm
+    from laplace_gnn_recommendation_tpu_torch.ops import spmm as tspmm
+
+    rng = np.random.default_rng(seed)
+    data = rng.normal(size=(40, 3)).astype(np.float32)
+    seg = np.sort(rng.choice([0, 2, 3, 5, 6, 8], 40))          # 1, 4, 7, 9 empty
+    for name, tol in (("segment_mean", 1e-6), ("segment_max", 0.0)):
+        for sorted_ in (True, False):
+            got = getattr(tspmm, name)(torch.from_numpy(data), torch.from_numpy(seg), 10,
+                                       indices_are_sorted=sorted_)
+            want = getattr(jspmm, name)(data, seg, 10, indices_are_sorted=sorted_)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=0)
+            assert (got.numpy()[[1, 4, 7, 9]] == 0).all()
+    d = torch.arange(12, dtype=torch.float32).reshape(6, 2)
+    s = torch.tensor([0, 0, 1, 1, 1, 3])
+    np.testing.assert_array_equal(tspmm.segment_mean(d, s, 5).numpy(),
+                                  [[1, 2], [6, 7], [0, 0], [10, 11], [0, 0]])
+    np.testing.assert_array_equal(tspmm.segment_max(d, s, 5).numpy(),
+                                  [[2, 3], [8, 9], [0, 0], [10, 11], [0, 0]])
+    np.testing.assert_array_equal(tspmm.segment_mean(torch.arange(6.0), s, 5).numpy(),
+                                  [0.5, 3.0, 0.0, 5.0, 0.0])
