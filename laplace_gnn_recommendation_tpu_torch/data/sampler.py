@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..configs import Config
+from ..utils.profiling import tracer
 from .graph import HostCSR
 
 
@@ -310,7 +311,9 @@ class SubgraphSampler:
     def sample_batch(
         self, seed_users: np.ndarray, valid_rows: Optional[int] = None
     ) -> SubgraphBatch:
-        """Build one padded batch for the given seed users.
+        """Build one padded batch for the given seed users, as one
+        ``sampler.batch`` span of ``utils/profiling.tracer`` on the calling
+        thread (``data/prefetch``'s worker when prefetched).
 
         ``valid_rows`` < B marks trailing rows as padding (their labels and
         ground truth are masked out so loss/metrics ignore them).
@@ -321,6 +324,10 @@ class SubgraphSampler:
         fast path (measured ~35% of batch time before). The budget-
         truncating path (rare: node sets exceeding their pad budgets) keeps
         the explicit membership-check semantics."""
+        with tracer.span("sampler.batch"):
+            return self._sample_batch(seed_users, valid_rows)
+
+    def _sample_batch(self, seed_users: np.ndarray, valid_rows: Optional[int]) -> SubgraphBatch:
         cfg, bud = self.cfg, self.budgets
         b = len(seed_users)
         valid_rows = b if valid_rows is None else valid_rows

@@ -10,13 +10,17 @@ as one ``torch.autograd.Function`` around the loop: its forward runs
 once more on the cotangents, and it saves nothing but the operand (the map
 is linear). The kernel tier (``ops/spmm_pallas.py``) trains through it, so
 its backward launches the same kernel as its forward; the plain tier
-(``ops/spmm.py``) keeps ordinary autograd.
+(``ops/spmm.py``) keeps ordinary autograd. Each pass of the loop, forward
+and backward (the latter on autograd's thread), is one ``propagate`` device
+span of ``utils/profiling.tracer``.
 """
 from __future__ import annotations
 
 from typing import Callable, Tuple
 
 import torch
+
+from ..utils.profiling import tracer
 
 
 def multiscale_loop(
@@ -54,12 +58,14 @@ class _SelfAdjointLoop(torch.autograd.Function):
     @staticmethod
     def forward(ctx, propagate, operand, num_iterations, user_emb0, item_emb0):
         ctx.propagate, ctx.operand, ctx.num_iterations = propagate, operand, num_iterations
-        return multiscale_loop(propagate, operand, user_emb0, item_emb0, num_iterations)
+        with tracer.span("propagate", device=True):
+            return multiscale_loop(propagate, operand, user_emb0, item_emb0, num_iterations)
 
     @staticmethod
     def backward(ctx, g_u, g_i):
-        gu0, gi0 = multiscale_loop(ctx.propagate, ctx.operand, dense_cotangent(g_u),
-                                   dense_cotangent(g_i), ctx.num_iterations)
+        with tracer.span("propagate", device=True):
+            gu0, gi0 = multiscale_loop(ctx.propagate, ctx.operand, dense_cotangent(g_u),
+                                       dense_cotangent(g_i), ctx.num_iterations)
         return None, None, None, gu0, gi0
 
 

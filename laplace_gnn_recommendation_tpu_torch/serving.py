@@ -41,6 +41,7 @@ from .ops.topk import (
 )
 from .parallel.mesh import model_parts, round_up
 from .ops.topk_pallas import exclusion_mask, row_quantize, streaming_mips_topk_int8
+from .utils.profiling import tracer
 
 QUANTIZED_TILE = 2048  # catalog rows are padded to a multiple of this
 
@@ -165,7 +166,16 @@ class RetrievalServer:
     def recommend(
         self, user_ids: Sequence[int], k: Optional[int] = None
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """(item_ids int32 [N, k], scores f32 [N, k]) for any request size."""
+        """(item_ids int32 [N, k], scores f32 [N, k]) for any request size.
+
+        Each server batch is a ``retrieve.batch`` span of :data:`tracer`
+        with four children in turn: ``retrieve.exclusions`` (the padded
+        chunk's exclusion rows on the host), ``retrieve.upload`` (the copies
+        to the device), ``retrieve.score`` (the top-k call, including any
+        wait inside it) and ``retrieve.readback`` (the copies
+        back into the answer); the counters ``retrieve.exclusion_slots``
+        (rows × padded width) and ``retrieve.excluded_ids`` (the valid ids
+        among them) count what was uploaded."""
         k = self.k if k is None else int(k)
         users = np.asarray(user_ids, np.int64)
         n = len(users)
@@ -174,21 +184,32 @@ class RetrievalServer:
         out_scores = np.zeros((n, k), np.float32)
         for s in range(0, n, b):
             e = min(s + b, n)
-            chunk = np.pad(users[s:e], (0, b - (e - s)))
-            uvec = self.user_emb[torch.from_numpy(chunk).to(self.device)]
-            ex = exc = None
-            if self._ex is not None:
-                ex = torch.from_numpy(self._ex[chunk]).to(self.device)
-                exc = torch.from_numpy(self._exc[chunk]).to(self.device)
-            if self._sharded:
-                vals, idx = sharded_mips_topk(self.mesh, uvec, self.item_emb, k, ex, exc,
-                                              num_valid_items=self.num_items)
-            elif self.quantized:
-                vals, idx = self._quantized_step(uvec, ex, exc, k)
-            else:
-                vals, idx = auto_mips_topk(uvec, self.item_emb, k, ex, exc)
-            out_items[s:e] = idx.cpu().numpy()[: e - s]
-            out_scores[s:e] = vals.cpu().numpy()[: e - s]
+            with tracer.span("retrieve.batch"):
+                with tracer.span("retrieve.exclusions"):
+                    chunk = np.pad(users[s:e], (0, b - (e - s)))
+                    ex_rows = ex_counts = None
+                    if self._ex is not None:
+                        ex_rows, ex_counts = self._ex[chunk], self._exc[chunk]
+                        if tracer.on:
+                            tracer.count("retrieve.exclusion_slots", ex_rows.size)
+                            tracer.count("retrieve.excluded_ids", int(ex_counts.sum()))
+                with tracer.span("retrieve.upload"):
+                    uvec = self.user_emb[torch.from_numpy(chunk).to(self.device)]
+                    ex = exc = None
+                    if ex_rows is not None:
+                        ex = torch.from_numpy(ex_rows).to(self.device)
+                        exc = torch.from_numpy(ex_counts).to(self.device)
+                with tracer.span("retrieve.score"):
+                    if self._sharded:
+                        vals, idx = sharded_mips_topk(self.mesh, uvec, self.item_emb, k, ex,
+                                                      exc, num_valid_items=self.num_items)
+                    elif self.quantized:
+                        vals, idx = self._quantized_step(uvec, ex, exc, k)
+                    else:
+                        vals, idx = auto_mips_topk(uvec, self.item_emb, k, ex, exc)
+                with tracer.span("retrieve.readback"):
+                    out_items[s:e] = idx.cpu().numpy()[: e - s]
+                    out_scores[s:e] = vals.cpu().numpy()[: e - s]
         return out_items, out_scores
 
 

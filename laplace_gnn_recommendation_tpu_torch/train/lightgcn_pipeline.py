@@ -66,6 +66,7 @@ from ..parallel.mesh import (
     model_parts,
     shard_rows_pad,
 )
+from ..utils.profiling import tracer
 from .adam import StaircaseAdam
 from .checkpoint import load_latest, save_state, tree_clone, tree_leaves_with_path
 from .reporting import Stats
@@ -193,7 +194,9 @@ def make_train_step(
     ``params`` in place; it returns (params, opt_state, loss), the loss a
     0-d tensor on the card (not read back, so the step never waits for the
     card). ``tx`` is the :class:`StaircaseAdam` whose ``init`` makes the
-    first ``opt_state``.
+    first ``opt_state``. The step's phases are host spans of
+    ``utils/profiling.tracer``: ``bpr.sample``, ``bpr.grad`` (forward, loss
+    and gradient) and ``adam``.
 
     With a ``mesh`` (called on every rank, ``params`` this rank's tables):
     every rank draws the global batch from its generator (one seed on every
@@ -208,29 +211,32 @@ def make_train_step(
     dp = data_parts(mesh)
 
     def step(params: LightGCNParams, opt_state, generator: torch.Generator):
-        u, pos, neg = (x.long() for x in sample_bpr_batch(
-            generator, graph.edge_user, graph.edge_item, graph.num_edges, cfg.batch_size,
-            row_ptr, graph.edge_item, graph.num_items, max_degree,
-        ))
-        n = u.shape[0]
-        if dp > 1:
-            sl = mesh.batch_slice(n)
-            u, pos, neg = u[sl], pos[sl], neg[sl]
-        # leaves that share the tables' storage: the gradient is taken
-        # w.r.t. them, and the update then writes the tables in place
-        e0 = LightGCNParams(params.user_emb.detach().requires_grad_(),
-                            params.item_emb.detach().requires_grad_())
-        uf, u0, itf, it0 = lightgcn_forward(
-            LightGCNParams(sync_grads(e0.user_emb, mesh), sync_grads(e0.item_emb, mesh)),
-            prop, cfg.num_iterations)
-        rows = (_rows(uf, u, mesh), _rows(u0, u, mesh), _rows(itf, pos, mesh),
-                _rows(it0, pos, mesh), _rows(itf, neg, mesh), _rows(it0, neg, mesh))
-        if dp > 1:
-            loss = _bpr_share(*rows, cfg.Lambda, cfg.bpr_variant, n)
-        else:
-            loss = bpr_loss(*rows, cfg.Lambda, cfg.bpr_variant)
-        grads = LightGCNParams(*torch.autograd.grad(loss, (e0.user_emb, e0.item_emb)))
-        opt_state = tx.update_(grads, opt_state, params)
+        with tracer.span("bpr.sample"):
+            u, pos, neg = (x.long() for x in sample_bpr_batch(
+                generator, graph.edge_user, graph.edge_item, graph.num_edges, cfg.batch_size,
+                row_ptr, graph.edge_item, graph.num_items, max_degree,
+            ))
+            n = u.shape[0]
+            if dp > 1:
+                sl = mesh.batch_slice(n)
+                u, pos, neg = u[sl], pos[sl], neg[sl]
+        with tracer.span("bpr.grad"):
+            # leaves that share the tables' storage: the gradient is taken
+            # w.r.t. them, and the update then writes the tables in place
+            e0 = LightGCNParams(params.user_emb.detach().requires_grad_(),
+                                params.item_emb.detach().requires_grad_())
+            uf, u0, itf, it0 = lightgcn_forward(
+                LightGCNParams(sync_grads(e0.user_emb, mesh), sync_grads(e0.item_emb, mesh)),
+                prop, cfg.num_iterations)
+            rows = (_rows(uf, u, mesh), _rows(u0, u, mesh), _rows(itf, pos, mesh),
+                    _rows(it0, pos, mesh), _rows(itf, neg, mesh), _rows(it0, neg, mesh))
+            if dp > 1:
+                loss = _bpr_share(*rows, cfg.Lambda, cfg.bpr_variant, n)
+            else:
+                loss = bpr_loss(*rows, cfg.Lambda, cfg.bpr_variant)
+            grads = LightGCNParams(*torch.autograd.grad(loss, (e0.user_emb, e0.item_emb)))
+        with tracer.span("adam"):
+            opt_state = tx.update_(grads, opt_state, params)
         loss = loss.detach()
         if dp > 1:
             loss = all_reduce_(loss.clone(), mesh, DATA_AXIS)

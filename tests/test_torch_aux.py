@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from laplace_gnn_recommendation_tpu.configs import Config as JConfig
 from laplace_gnn_recommendation_tpu.train import hpo as jhpo
@@ -239,8 +240,20 @@ def test_roofline_h100_defaults():
     assert mem.bound == "memory" and 0 < mem.fraction_of_peak <= 1.0
     assert mem.fraction_of_peak == pytest.approx(500e9 / 3.35e12)
     assert "spmm" in mem.report()
-    mm = profiling.Roofline(name="mm", seconds=1e-3, flops=300e9, bytes_moved=1e6)
+    assert mem.peak_flops == 67e12   # f32 work unless told otherwise
+    mm = profiling.Roofline(name="mm", seconds=1e-3, flops=300e9, bytes_moved=1e6,
+                            dtype=torch.bfloat16)
     assert mm.bound == "compute" and mm.fraction_of_peak == pytest.approx(300e12 / 989e12)
+
+
+@pytest.mark.parametrize("dtype,peak", [(torch.float32, 67e12), ("tf32", 495e12),
+                                        (torch.bfloat16, 989e12), (torch.int8, 1979e12)])
+def test_roofline_peak_from_dtype(dtype, peak):
+    r = profiling.Roofline(name="mm", seconds=1e-3, flops=30e9, bytes_moved=1e6, dtype=dtype)
+    assert r.peak_flops == peak
+    assert r.bound == "compute" and r.fraction_of_peak == pytest.approx(30e12 / peak)
+    with pytest.raises(ValueError, match="no H100 peak"):
+        profiling.Roofline(name="mm", seconds=1e-3, dtype=torch.float64)
 
 
 def test_profiler_and_timer(tmp_path):
