@@ -2435,7 +2435,7 @@ def main() -> int:
         f"forward {bf16_vs_f32} (information)")
     if not (torch.isfinite(uf).all() and torch.isfinite(itf).all()):
         fail("non-finite final embeddings")
-    seen = qserver._ex[req]
+    seen = qserver._ex.cpu().numpy()[req]
     for name, ids, scores in (("int8", q_ids, q_scores), ("f32", f_ids, f_scores)):
         if ids.shape != (SERVE_USERS, 12) or not np.isfinite(scores).all():
             fail(f"{name} server: bad output shape or values")

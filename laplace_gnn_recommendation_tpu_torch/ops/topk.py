@@ -4,6 +4,20 @@ the JAX package's ``ops/topk.py``, single device and sharded.
 Exclusion semantics: excluded scores are set to ``EXCLUDE_FILL`` (the
 reference's ``-(1 << 10)``) before one top-k, which equals taking
 ``topk(k + |excluded|)`` and dropping excluded ids.
+
+Exclusions are written at fixed shapes: every one of the [B, X] slots is one
+write into a flat buffer that holds the [B, I] scores and one spare element
+past them, and a slot that excludes nothing (a negative id, an id past the
+catalog, a slot at or past the row's count) writes the spare. Nothing waits
+for the card to learn how many slots are valid, so a batch loop can issue
+product, exclusion and top-k without a host round trip. A caller that
+answers many batches may compute their positions once
+(:func:`exclusion_slots` over a stack of batches) and hand each batch its
+own as ``exclude_slots``. Where the scores are a temporary of the call
+(``mips_topk``, ``mips_topk_int8``, ``sharded_mips_topk``, which record no
+gradient) the product lands in such a buffer and the fill is written in
+place; ``apply_exclusion`` and ``masked_topk`` copy the caller's scores into
+one and leave them untouched.
 """
 from __future__ import annotations
 
@@ -21,6 +35,49 @@ STREAMING_MAX_BATCH = 512
 STREAMING_TILE = 512
 
 
+def exclusion_slots(
+    num_cols: int,
+    exclude_items: torch.Tensor,  # int [..., B, X], -1 pads
+    exclude_count: Optional[torch.Tensor] = None,  # int [..., B]
+    offset: int = 0,
+) -> torch.Tensor:
+    """Flat positions (int64 [..., B, X]) of the excluded entries in a
+    row-major [B, num_cols] buffer whose ids start at ``offset``, one such
+    buffer for each index of the leading dimensions: a valid slot (id −
+    offset in [0, num_cols), slot below the row's count) gives row ·
+    num_cols + id − offset; every other slot gives B · num_cols, the spare
+    element past the matrix. Fixed shape; no host wait."""
+    b, x = exclude_items.shape[-2:]
+    dev = exclude_items.device
+    local = exclude_items - offset if offset else exclude_items
+    valid = (local >= 0) & (local < num_cols)
+    if exclude_count is not None:
+        valid &= torch.arange(x, device=dev) < exclude_count[..., None]
+    # int64 row starts: the sum is int64 whatever the ids' integer type
+    flat = torch.arange(0, b * num_cols, num_cols, device=dev)[:, None] + local
+    return torch.where(valid, flat, b * num_cols)
+
+
+def scores_with_spare(
+    num_rows: int, num_cols: int, dtype=torch.float32, device=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(flat buffer of num_rows · num_cols + 1 elements, its contiguous
+    [num_rows, num_cols] view): the matrix and the spare element that
+    :func:`exclusion_slots` aims invalid slots at."""
+    buf = torch.empty(num_rows * num_cols + 1, dtype=dtype, device=device)
+    return buf, buf[: num_rows * num_cols].view(num_rows, num_cols)
+
+
+def _exclude_(buf, num_cols, exclude_items, exclude_count, exclude_slots, fill, offset=0):
+    """In place: ``fill`` at every excluded position of ``buf`` (a
+    :func:`scores_with_spare` buffer): ``exclude_slots`` where given, else
+    those of the items and counts; invalid slots write the spare."""
+    if exclude_slots is None and exclude_items is not None:
+        exclude_slots = exclusion_slots(num_cols, exclude_items, exclude_count, offset)
+    if exclude_slots is not None:
+        buf.index_fill_(0, exclude_slots.reshape(-1), fill)
+
+
 def apply_exclusion(
     scores: torch.Tensor,         # [B, I]
     exclude_items: torch.Tensor,  # int [B, X], -1 pads
@@ -29,15 +86,12 @@ def apply_exclusion(
 ) -> torch.Tensor:
     """Copy of ``scores`` with ``scores[b, exclude_items[b, j]] = fill`` for
     valid j: non-negative, below the catalog size and, with
-    ``exclude_count``, at a slot below the row's count."""
+    ``exclude_count``, at a slot below the row's count. ``scores`` is left
+    as it was."""
     b, num_items = scores.shape
-    x = exclude_items.shape[1]
-    valid = (exclude_items >= 0) & (exclude_items < num_items)
-    if exclude_count is not None:
-        valid &= torch.arange(x, device=scores.device)[None, :] < exclude_count[:, None]
-    rows = torch.arange(b, device=scores.device)[:, None].expand(b, x)
-    out = scores.clone()
-    out[rows[valid], exclude_items[valid].long()] = fill
+    buf, out = scores_with_spare(b, num_items, scores.dtype, scores.device)
+    out.copy_(scores)
+    _exclude_(buf, num_items, exclude_items, exclude_count, None, fill)
     return out
 
 
@@ -64,24 +118,32 @@ def masked_topk(
     exclude_items: Optional[torch.Tensor] = None,
     exclude_count: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """top-k over the item axis after exclusion masking."""
+    """top-k over the item axis after exclusion masking; the caller's
+    ``scores`` are left as they were."""
     if exclude_items is not None:
         scores = apply_exclusion(scores, exclude_items, exclude_count)
     return hierarchical_topk(scores, k)
 
 
+@torch.no_grad()
 def mips_topk(
     user_emb: torch.Tensor,   # [B, D]
     item_emb: torch.Tensor,   # [I, D]
     k: int,
     exclude_items: Optional[torch.Tensor] = None,
     exclude_count: Optional[torch.Tensor] = None,
+    exclude_slots: Optional[torch.Tensor] = None,   # [B, X], from exclusion_slots(I, ...)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Materializing MIPS top-k: one [B, D]×[D, I] product + masked top-k."""
-    scores = user_emb.float() @ item_emb.float().T
-    return masked_topk(scores, k, exclude_items, exclude_count)
+    """Materializing MIPS top-k: one [B, D]×[D, I] product into a buffer
+    with a spare element, exclusions filled in place, one top-k."""
+    b, num_items = user_emb.shape[0], item_emb.shape[0]
+    buf, scores = scores_with_spare(b, num_items, device=user_emb.device)
+    torch.mm(user_emb.float(), item_emb.float().T, out=scores)
+    _exclude_(buf, num_items, exclude_items, exclude_count, exclude_slots, EXCLUDE_FILL)
+    return hierarchical_topk(scores, k)
 
 
+@torch.no_grad()
 def mips_topk_int8(
     user_emb: torch.Tensor,      # f32 [B, D]
     q_items: torch.Tensor,       # int8 [I, D] (topk_pallas.row_quantize)
@@ -89,16 +151,20 @@ def mips_topk_int8(
     k: int,
     exclude_items: Optional[torch.Tensor] = None,
     exclude_count: Optional[torch.Tensor] = None,
+    exclude_slots: Optional[torch.Tensor] = None,   # [B, X], from exclusion_slots(I, ...)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Materializing retrieval over an int8 catalog: users row-quantized on
     the fly, exact integer scores dequantized as (raw · su) · si, masked
-    top-k."""
+    top-k (exclusions filled in place, as in :func:`mips_topk`)."""
     from .topk_pallas import row_quantize
 
     qu, su = row_quantize(user_emb.float())
     raw = qu.to(torch.float64) @ q_items.to(torch.float64).T  # exact
-    scores = raw.to(torch.float32) * su.reshape(-1, 1) * item_scales.reshape(1, -1)
-    return masked_topk(scores, k, exclude_items, exclude_count)
+    b, num_items = raw.shape
+    buf, scores = scores_with_spare(b, num_items, device=raw.device)
+    torch.mul(raw.to(torch.float32) * su.reshape(-1, 1), item_scales.reshape(1, -1), out=scores)
+    _exclude_(buf, num_items, exclude_items, exclude_count, exclude_slots, EXCLUDE_FILL)
+    return hierarchical_topk(scores, k)
 
 
 def auto_mips_topk(
@@ -107,6 +173,7 @@ def auto_mips_topk(
     k: int,
     exclude_items: Optional[torch.Tensor] = None,
     exclude_count: Optional[torch.Tensor] = None,
+    exclude_slots: Optional[torch.Tensor] = None,   # [B, X], from exclusion_slots(I, ...)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Retrieval entry point: the materializing path by default; the
     streaming kernel (kernel B) on the card when the [B, I] f32 scores would
@@ -123,12 +190,13 @@ def auto_mips_topk(
         from .topk_pallas import exclusion_mask, streaming_mips_topk
 
         mask = None
-        if exclude_items is not None:
-            mask = exclusion_mask(num_items, exclude_items, exclude_count)
+        if exclude_items is not None or exclude_slots is not None:
+            mask = exclusion_mask(num_items, exclude_items, exclude_count, exclude_slots)
         return streaming_mips_topk(user_emb, item_emb, k, mask)
-    return mips_topk(user_emb, item_emb, k, exclude_items, exclude_count)
+    return mips_topk(user_emb, item_emb, k, exclude_items, exclude_count, exclude_slots)
 
 
+@torch.no_grad()
 def sharded_mips_topk(
     mesh,
     user_emb: torch.Tensor,   # [B, D], the same on every rank
@@ -137,6 +205,7 @@ def sharded_mips_topk(
     exclude_items: Optional[torch.Tensor] = None,  # global ids [B, X]
     exclude_count: Optional[torch.Tensor] = None,  # [B]
     num_valid_items: Optional[int] = None,
+    exclude_slots: Optional[torch.Tensor] = None,  # [B, X], exclusion_slots(I/p, ..., offset)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Distributed MIPS top-k (JAX ``ops/topk.py:205-290``): on each rank of
     ``model`` one product with its catalog block, exclusions set to
@@ -161,23 +230,14 @@ def sharded_mips_topk(
     offset = mesh.rank(MODEL_AXIS) * shard_items
     if num_valid_items is not None and num_valid_items >= shard_items * parts:
         num_valid_items = None
-    dev = user_emb.device
-    scores = user_emb.float() @ item_emb.float().T
+    b = user_emb.shape[0]
+    buf, scores = scores_with_spare(b, shard_items, device=user_emb.device)
+    torch.mm(user_emb.float(), item_emb.float().T, out=scores)
     if num_valid_items is not None:
         # the pad tail reads -inf, not EXCLUDE_FILL: user exclusions may fill a
         # row's top-k with EXCLUDE_FILL ties, and a pad id must never win one
-        col = offset + torch.arange(shard_items, device=dev)
-        scores = torch.where((col < num_valid_items)[None, :], scores,
-                             torch.full((), -torch.inf, device=dev))
-    if exclude_items is not None:
-        b, x = exclude_items.shape
-        local = exclude_items.long() - offset
-        valid = (local >= 0) & (local < shard_items)
-        if exclude_count is not None:
-            valid &= torch.arange(x, device=dev)[None, :] < exclude_count[:, None]
-        rows = torch.arange(b, device=dev)[:, None].expand(b, x)
-        scores = scores.clone()
-        scores[rows[valid], local[valid]] = EXCLUDE_FILL
+        scores[:, max(num_valid_items - offset, 0):] = -torch.inf
+    _exclude_(buf, shard_items, exclude_items, exclude_count, exclude_slots, EXCLUDE_FILL, offset)
     vals, idx = hierarchical_topk(scores, min(k, shard_items))
     idx = idx + offset
     if parts > 1:

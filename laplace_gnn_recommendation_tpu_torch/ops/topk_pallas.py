@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .topk import exclusion_slots
 
 NEG_INF = float(np.finfo(np.float32).min)
 MAX_K = 256
@@ -88,21 +89,22 @@ def row_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def exclusion_mask(
     num_items: int,
-    exclude_items: torch.Tensor,
+    exclude_items: Optional[torch.Tensor] = None,
     exclude_count: Optional[torch.Tensor] = None,
+    exclude_slots: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Dense int8 [B, I] exclusion mask from padded per-user exclusion lists.
     Negative entries (the -1 pad), ids ≥ ``num_items`` and slots beyond
-    ``exclude_count`` are ignored."""
-    b, x = exclude_items.shape
-    dev = exclude_items.device
-    valid = (exclude_items >= 0) & (exclude_items < num_items)
-    if exclude_count is not None:
-        valid &= torch.arange(x, device=dev)[None, :] < exclude_count[:, None]
-    rows = torch.arange(b, device=dev)[:, None].expand(b, x)
-    mask = torch.zeros((b, num_items), dtype=torch.int8, device=dev)
-    mask[rows[valid], exclude_items[valid].long()] = 1
-    return mask
+    ``exclude_count`` are ignored. Written at fixed shapes, as
+    ``ops/topk.apply_exclusion``: ignored slots set a spare byte past the
+    mask, so nothing waits for the card. ``exclude_slots`` ([B, X], from
+    ``exclusion_slots(num_items, ...)``) may stand in for items and counts."""
+    if exclude_slots is None:
+        exclude_slots = exclusion_slots(num_items, exclude_items, exclude_count)
+    b = exclude_slots.shape[0]
+    buf = torch.zeros(b * num_items + 1, dtype=torch.int8, device=exclude_slots.device)
+    buf.index_fill_(0, exclude_slots.reshape(-1), 1)
+    return buf[: b * num_items].view(b, num_items)
 
 
 def streaming_mips_topk_plain(

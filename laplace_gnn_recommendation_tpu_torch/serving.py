@@ -35,6 +35,7 @@ from .models import sage
 from .ops.topk import (
     STREAMING_MAX_BATCH,
     auto_mips_topk,
+    exclusion_slots,
     mips_topk_int8,
     sharded_mips_topk,
     top_k_lowest_first,
@@ -96,27 +97,34 @@ class RetrievalServer:
             items = torch.cat(
                 [items, items.new_zeros((self.items_padded - self.num_items, self.dim))]
             )
+        # each batch's scores are a [batch, cols] buffer whose ids start at
+        # offset: the catalog, padded, or this rank's block of it
+        self._cols, self._offset = self.items_padded, 0
         if self._sharded:
             lo, hi = mesh.row_range(self.items_padded)
             items = items[lo:hi].contiguous()
+            self._cols, self._offset = hi - lo, lo
         self.item_emb = items
         self._has_tail = self.items_padded != self.num_items
         if self.quantized:
             q, s = row_quantize(self.item_emb)
             self._q_items, self._item_scales = q.contiguous(), s.contiguous()
             # pad rows quantize to scale 0 → score 0, which would outrank
-            # negative real scores: they are excluded explicitly
-            self._tail_ex = torch.arange(
-                self.num_items, self.items_padded, dtype=torch.int32, device=dev
-            )
+            # negative real scores: they are excluded explicitly, as the
+            # exclusion slots of a batch's materialized scores
+            self._tail_slots = exclusion_slots(self.items_padded, torch.arange(
+                self.num_items, self.items_padded, device=dev).expand(self.batch_size, -1))
+        # the exclusion table lives on the device; each request gathers its
+        # rows there. The host keeps the counts alone, for the tracer.
+        self._ex = self._exc = self._exc_host = None
         if exclude_edges is not None:
             eu, ei = exclude_edges
-            self._ex, self._exc = padded_user_items(
+            ex, self._exc_host = padded_user_items(
                 np.arange(self.num_users, dtype=np.int32),
                 np.asarray(eu, np.int64), np.asarray(ei),
             )
-        else:
-            self._ex = self._exc = None
+            self._ex = torch.from_numpy(ex).to(dev)
+            self._exc = torch.from_numpy(self._exc_host).to(dev)
 
     @classmethod
     def from_lightgcn_artifacts(
@@ -137,27 +145,20 @@ class RetrievalServer:
             quantized=quantized, device=device, mesh=mesh,
         )
 
-    def _quantized_step(self, uvec, ex, exc, k):
-        b = uvec.shape[0]
+    def _quantized_step(self, uvec, slots, k):
         if self.batch_size > STREAMING_MAX_BATCH:
-            # materializing int8 path; tail exclusions go FIRST, because
-            # exclude_count validity is positional
+            # materializing int8 path: the pad tail joins the exclusions
             if self._has_tail:
-                n_tail = self._tail_ex.shape[0]
-                tail = self._tail_ex[None, :].expand(b, n_tail)
-                if ex is None:
-                    ex = tail
-                    exc = torch.full((b,), n_tail, dtype=torch.int32, device=uvec.device)
-                else:
-                    ex = torch.cat([tail, ex.to(torch.int32)], dim=1)
-                    exc = exc + n_tail
-            return mips_topk_int8(uvec, self._q_items, self._item_scales, k, ex, exc)
+                slots = self._tail_slots if slots is None else torch.cat(
+                    [self._tail_slots, slots], dim=1)
+            return mips_topk_int8(uvec, self._q_items, self._item_scales, k, exclude_slots=slots)
         mask = None
-        if ex is not None:
-            mask = exclusion_mask(self.items_padded, ex, exc)
+        if slots is not None:
+            mask = exclusion_mask(self.items_padded, exclude_slots=slots)
         if self._has_tail:
             if mask is None:
-                mask = torch.zeros((b, self.items_padded), dtype=torch.int8, device=uvec.device)
+                mask = torch.zeros((uvec.shape[0], self.items_padded), dtype=torch.int8,
+                                   device=uvec.device)
             mask[:, self.num_items:] = 1
         return streaming_mips_topk_int8(
             uvec, self._q_items, self._item_scales, k, excl_mask=mask
@@ -168,49 +169,79 @@ class RetrievalServer:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """(item_ids int32 [N, k], scores f32 [N, k]) for any request size.
 
-        Each server batch is a ``retrieve.batch`` span of :data:`tracer`
-        with four children in turn: ``retrieve.exclusions`` (the padded
-        chunk's exclusion rows on the host), ``retrieve.upload`` (the copies
-        to the device), ``retrieve.score`` (the top-k call, including any
-        wait inside it) and ``retrieve.readback`` (the copies
-        back into the answer); the counters ``retrieve.exclusion_slots``
-        (rows × padded width) and ``retrieve.excluded_ids`` (the valid ids
-        among them) count what was uploaded."""
+        The request's ids go to the device in one copy, padded to whole
+        batches; its users' rows and exclusion rows are gathered there from
+        the tables, and the exclusions turned into each batch's positions
+        in its score buffer (``ops/topk.exclusion_slots``), once a request;
+        each batch then issues product, exclusion and top-k on its slice
+        without waiting on the device; the answer comes back in one copy of
+        ids and one of scores, the request's only wait.
+
+        Spans of :data:`tracer`: ``retrieve.request`` is the root, with
+        children ``retrieve.upload`` (the copy, the gathers and the
+        exclusion positions, once), one ``retrieve.batch`` a batch holding
+        one ``retrieve.score`` (the issue of product, exclusion and top-k)
+        and ``retrieve.readback`` (once). Counters:
+        ``retrieve.exclusion_slots`` (padded rows × exclusion width) and
+        ``retrieve.excluded_ids`` (the valid ids among them), from the host
+        counts; ``retrieve.host_waits``, one at every point where the host
+        waits for the device (the readback; the sharded tier's collectives
+        are not counted)."""
         k = self.k if k is None else int(k)
         users = np.asarray(user_ids, np.int64)
         n = len(users)
         b = self.batch_size
-        out_items = np.zeros((n, k), np.int32)
-        out_scores = np.zeros((n, k), np.float32)
-        for s in range(0, n, b):
-            e = min(s + b, n)
-            with tracer.span("retrieve.batch"):
-                with tracer.span("retrieve.exclusions"):
-                    chunk = np.pad(users[s:e], (0, b - (e - s)))
-                    ex_rows = ex_counts = None
-                    if self._ex is not None:
-                        ex_rows, ex_counts = self._ex[chunk], self._exc[chunk]
-                        if tracer.on:
-                            tracer.count("retrieve.exclusion_slots", ex_rows.size)
-                            tracer.count("retrieve.excluded_ids", int(ex_counts.sum()))
-                with tracer.span("retrieve.upload"):
-                    uvec = self.user_emb[torch.from_numpy(chunk).to(self.device)]
-                    ex = exc = None
-                    if ex_rows is not None:
-                        ex = torch.from_numpy(ex_rows).to(self.device)
-                        exc = torch.from_numpy(ex_counts).to(self.device)
-                with tracer.span("retrieve.score"):
+        if n == 0:
+            return np.zeros((0, k), np.int32), np.zeros((0, k), np.float32)
+        batches = -(-n // b)
+        padded = np.zeros(batches * b, np.int64)
+        padded[:n] = users
+        with tracer.span("retrieve.request"):
+            if self._ex is not None and tracer.on:
+                tracer.count("retrieve.exclusion_slots", padded.size * self._ex.shape[1])
+                tracer.count("retrieve.excluded_ids", int(self._exc_host[padded].sum()))
+            with tracer.span("retrieve.upload"):
+                ids = torch.from_numpy(padded)
+                if self.device.type == "cuda":
+                    ids = ids.pin_memory().to(self.device, non_blocking=True)
+                uvecs = self.user_emb.index_select(0, ids).view(batches, b, -1)
+                slots = [None] * batches
+                if self._ex is not None:
+                    # [batches, b, X]: each batch's positions in its scores
+                    slots = exclusion_slots(
+                        self._cols, self._ex.index_select(0, ids).view(batches, b, -1),
+                        self._exc.index_select(0, ids).view(batches, b), self._offset)
+            parts = []
+            for j in range(batches):
+                with tracer.span("retrieve.batch"), tracer.span("retrieve.score"):
+                    # one view a batch, as it is issued (unbinding all at
+                    # once would hold the first product back)
+                    uvec, sl = uvecs[j], slots[j]
                     if self._sharded:
-                        vals, idx = sharded_mips_topk(self.mesh, uvec, self.item_emb, k, ex,
-                                                      exc, num_valid_items=self.num_items)
+                        parts.append(sharded_mips_topk(self.mesh, uvec, self.item_emb, k,
+                                                       num_valid_items=self.num_items,
+                                                       exclude_slots=sl))
                     elif self.quantized:
-                        vals, idx = self._quantized_step(uvec, ex, exc, k)
+                        parts.append(self._quantized_step(uvec, sl, k))
                     else:
-                        vals, idx = auto_mips_topk(uvec, self.item_emb, k, ex, exc)
-                with tracer.span("retrieve.readback"):
-                    out_items[s:e] = idx.cpu().numpy()[: e - s]
-                    out_scores[s:e] = vals.cpu().numpy()[: e - s]
-        return out_items, out_scores
+                        parts.append(auto_mips_topk(uvec, self.item_emb, k, exclude_slots=sl))
+            with tracer.span("retrieve.readback"):
+                return self._readback(parts, n)
+
+    @staticmethod
+    def _readback(parts, n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The first ``n`` rows of the batches' (values, ids), in one copy
+        each to the host and one wait."""
+        vals = torch.cat([v for v, _ in parts])[:n]
+        idx = torch.cat([i for _, i in parts])[:n]
+        tracer.count("retrieve.host_waits")
+        if vals.device.type != "cuda":
+            return idx.numpy(), vals.numpy()
+        stream = torch.cuda.current_stream(vals.device)
+        vals, idx = vals.to("cpu", non_blocking=True), idx.to("cpu", non_blocking=True)
+        stream.synchronize()
+        # out of pinned memory, which the caller may hold for long
+        return idx.numpy().copy(), vals.numpy().copy()
 
 
 class RankingServer:

@@ -81,7 +81,7 @@ def test_f32_server_matches_jax(flow):
     ti, ts = tsrv.recommend(flow["req"])
     assert ti.shape == (N_REQ, TOPK) and ti.dtype == np.int32
     _assert_topk_agree(ti, ts, ji, js)
-    seen = tsrv._ex[flow["req"]]
+    seen = tsrv._ex.numpy()[flow["req"]]
     assert not (ti[:, :, None] == seen[:, None, :]).any()
 
 

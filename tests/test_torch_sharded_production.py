@@ -3,7 +3,8 @@
 the JAX package's tolerances (``tests/test_sharded_production.py``):
 ``lightgcn_pipeline.train()`` and ``export_artifacts()``,
 ``RetrievalServer.recommend()`` (also against the JAX package's
-``sharded_mips_topk`` on its 8-device CPU mesh), the over-excluded user,
+``sharded_mips_topk`` on its 8-device CPU mesh, and bit for bit against the
+plain per-batch loop it replaced), the over-excluded user,
 ``encdec_pipeline.run_pipeline()`` and its sharded tables, a sharded
 checkpoint and its resume, and PinSAGE ``train()``.
 
@@ -22,7 +23,10 @@ import pytest
 
 from laplace_gnn_recommendation_tpu_torch.configs import Config, LightGCNConfig
 from laplace_gnn_recommendation_tpu_torch.data.graph import HostCSR
-from laplace_gnn_recommendation_tpu_torch.data.lightgcn_data import create_lightgcn_data
+from laplace_gnn_recommendation_tpu_torch.data.lightgcn_data import (
+    create_lightgcn_data,
+    padded_user_items,
+)
 from laplace_gnn_recommendation_tpu_torch.data.link_pred_data import create_link_pred_data
 from laplace_gnn_recommendation_tpu_torch.data.pinsage_data import PinSAGEData
 from laplace_gnn_recommendation_tpu_torch.data.synthetic import (
@@ -108,6 +112,51 @@ def _pinsage_setup():
     return cfg, data
 
 
+LOOP_SIZES = (1, 7, 8, 9, 29)   # 1, B-1, B, B+1, 3B+5 at the server batch of 8
+
+
+def _old_sharded_recommend(mesh, srv, users, ex_host, exc_host):
+    """The sharded server's answer as its batch loop gave it before: host
+    exclusion rows a batch, the distributed top-k with boolean-index
+    exclusions on a cloned score block, each batch copied back on its own."""
+    import torch
+
+    from laplace_gnn_recommendation_tpu_torch.ops.topk import (
+        EXCLUDE_FILL,
+        hierarchical_topk,
+        top_k_lowest_first,
+    )
+    from laplace_gnn_recommendation_tpu_torch.parallel.collectives import all_gather_dim0
+    from laplace_gnn_recommendation_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    parts, n_block = mesh.size(MODEL_AXIS), srv.item_emb.shape[0]
+    offset, b, k, n = mesh.rank(MODEL_AXIS) * n_block, srv.batch_size, srv.k, len(users)
+    ids, scores = np.zeros((n, k), np.int32), np.zeros((n, k), np.float32)
+    for s in range(0, n, b):
+        e = min(s + b, n)
+        chunk = np.pad(users[s:e], (0, b - (e - s)))
+        ex, exc = torch.from_numpy(ex_host[chunk]), torch.from_numpy(exc_host[chunk])
+        block = srv.user_emb[torch.from_numpy(chunk)] @ srv.item_emb.T
+        col = offset + torch.arange(n_block)
+        block = torch.where((col < srv.num_items)[None, :], block, torch.full((), -torch.inf))
+        local = ex.long() - offset
+        valid = ((local >= 0) & (local < n_block)
+                 & (torch.arange(ex.shape[1])[None, :] < exc[:, None]))
+        rows = torch.arange(b)[:, None].expand(b, ex.shape[1])
+        block = block.clone()
+        block[rows[valid], local[valid]] = EXCLUDE_FILL
+        vals, idx = hierarchical_topk(block, min(k, n_block))
+        idx = idx + offset
+        vals = all_gather_dim0(vals[None], mesh, MODEL_AXIS).permute(1, 0, 2).reshape(b, -1)
+        idx = all_gather_dim0(idx[None], mesh, MODEL_AXIS).permute(1, 0, 2).reshape(b, -1)
+        mvals, mpos = top_k_lowest_first(vals, k)
+        midx = torch.gather(idx, 1, mpos)
+        midx = torch.where(torch.isfinite(mvals), midx, torch.zeros_like(midx))
+        ids[s:e], scores[s:e] = midx.numpy()[: e - s], mvals.numpy()[: e - s]
+    assert parts > 1 and srv.items_padded > srv.num_items
+    return ids, scores
+
+
 def _rank_runs(art_dir, ckpt_dir):
     """Every surface on one rank of the 2×2 mesh."""
     import torch
@@ -153,6 +202,16 @@ def _rank_runs(art_dir, ckpt_dir):
     out["retrieval"] = srv.recommend(np.arange(50))
     out["retrieval_plain"] = RetrievalServer(u2, it2, k=5, batch_size=16,
                                              mesh=mesh).recommend(np.arange(20))
+
+    # the server loop against the plain per-batch loop, at request sizes
+    # around its batch of 8
+    loop_srv = RetrievalServer(u, it, k=8, exclude_edges=excl, batch_size=8, mesh=mesh)
+    ex_host, exc_host = padded_user_items(np.arange(64, dtype=np.int32),
+                                          excl[0].astype(np.int64), excl[1])
+    for n in LOOP_SIZES:
+        users = np.random.default_rng(n).integers(0, 64, n)
+        out[f"loop_{n}"] = (*loop_srv.recommend(users),
+                            *_old_sharded_recommend(mesh, loop_srv, users, ex_host, exc_host))
 
     # the over-excluded user: 9 real items padded to 10 rows, 7 excluded, k=5
     rng = np.random.default_rng(0)
@@ -274,6 +333,16 @@ class TestRetrievalServerSharded:
         np.testing.assert_array_equal(i1, i2)
         np.testing.assert_allclose(v1, v2, rtol=1e-5, atol=1e-5)
         assert (i2 < 301).all()
+
+    @pytest.mark.parametrize("n", LOOP_SIZES)
+    def test_recommend_equals_per_batch_loop(self, ranks, n):
+        """The sharded tier's batch loop (exclusion rows gathered on the
+        device, one upload and one readback) against the plain per-batch
+        loop on the same mesh: ids equal, scores bit-equal."""
+        ids, scores, ref_ids, ref_scores = _same_on_every_rank(ranks, f"loop_{n}")
+        assert ids.shape == (n, 8) and ids.dtype == np.int32 and scores.dtype == np.float32
+        np.testing.assert_array_equal(ids, ref_ids)
+        np.testing.assert_array_equal(scores.view(np.int32), ref_scores.view(np.int32))
 
     def test_recommend_parity_no_exclusions(self, ranks):
         from laplace_gnn_recommendation_tpu_torch.serving import RetrievalServer

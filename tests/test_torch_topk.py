@@ -479,3 +479,140 @@ def test_int8_wrapper_refuses_bad_k_and_other_devices():
             ttp.streaming_mips_topk_int8(u, q, s, k)
     with pytest.raises(ValueError, match="unsupported device"):
         ttp.streaming_mips_topk_int8(u.to("meta"), q.to("meta"), s.to("meta"), 5)
+
+
+# ---- exclusions at fixed shapes ------------------------------------------------
+# Each helper against the boolean-index version it replaced (kept below, as
+# plain PyTorch), bit for bit, and against the JAX package where it has the
+# helper; the caller's tensors are never written.
+
+EX_B, EX_I = 5, 24
+
+
+def _exclusion_case(case):
+    """(exclude_items int32 [B, X], exclude_count int32 [B] or None, k)."""
+    rng = np.random.default_rng(60)
+    ex = np.full((EX_B, 6), -1, np.int32)
+    cnt = np.zeros(EX_B, np.int32)
+    for r in range(EX_B):
+        c = int(rng.integers(1, 6))
+        ex[r, :c], cnt[r] = rng.choice(EX_I, c, replace=False), c
+    k = 4
+    if case == "count_zero":
+        cnt[[0, 3]] = 0                       # ids in the slots, none counted
+    elif case == "full_rows":
+        ex = rng.permuted(np.tile(np.arange(EX_I, dtype=np.int32), (EX_B, 1)), axis=1)[:, :6]
+        cnt[:] = 6
+    elif case == "pads_inside_count":
+        ex[:, 1] = -1
+        cnt[:] = np.maximum(cnt, 3)
+    elif case == "past_catalog":
+        ex[1, 0], ex[2, :2] = EX_I, [EX_I + 7, 1 << 20]
+    elif case == "duplicates":
+        ex[0, :4], cnt[0] = [3, 3, 9, 3], 4
+        ex[4, :2], cnt[4] = [ex[4, 0], ex[4, 0]], max(cnt[4], 2)
+    elif case == "over_excluded":
+        k = 6
+        ex = np.full((EX_B, EX_I - 2), -1, np.int32)
+        ex[2] = np.arange(2, EX_I)            # 2 items left for k = 6
+        cnt[2] = EX_I - 2
+        ex[0, :3], cnt[0] = [5, 6, 7], 3
+    elif case == "k_is_catalog":
+        k = EX_I
+    elif case == "no_count":
+        cnt = None
+    return ex, cnt, k
+
+
+EXCLUSION_CASES = ["count_zero", "full_rows", "pads_inside_count", "past_catalog", "duplicates",
+                   "over_excluded", "k_is_catalog", "no_count"]
+
+
+def _valid_slots(ex, cnt, num_items):
+    x = ex.shape[1]
+    valid = (ex >= 0) & (ex < num_items)
+    if cnt is not None:
+        valid &= torch.arange(x)[None, :] < cnt[:, None]
+    return valid, torch.arange(ex.shape[0])[:, None].expand(ex.shape[0], x)
+
+
+def _boolean_index_exclusion(scores, ex, cnt, fill=ttopk.EXCLUDE_FILL):
+    valid, rows = _valid_slots(ex, cnt, scores.shape[1])
+    out = scores.clone()
+    out[rows[valid], ex[valid].long()] = fill
+    return out
+
+
+def _boolean_index_mask(num_items, ex, cnt):
+    valid, rows = _valid_slots(ex, cnt, num_items)
+    mask = torch.zeros((ex.shape[0], num_items), dtype=torch.int8)
+    mask[rows[valid], ex[valid].long()] = 1
+    return mask
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("case", EXCLUSION_CASES)
+def test_apply_exclusion_fixed_shape(case):
+    ex, cnt, _ = _exclusion_case(case)
+    scores = torch.from_numpy(_gauss(61, EX_B, EX_I))
+    before = scores.clone()
+    out = ttopk.apply_exclusion(scores, _t(ex), _t(cnt))
+    assert torch.equal(scores, before)
+    assert out.shape == scores.shape and out.is_contiguous()
+    assert torch.equal(out, _boolean_index_exclusion(scores, _t(ex), _t(cnt)))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jtopk.apply_exclusion(
+        jnp.asarray(before.numpy()), ex, cnt)))
+
+
+@pytest.mark.parametrize("case", EXCLUSION_CASES)
+def test_masked_topk_fixed_shape(case):
+    """``masked_topk`` on the caller's scores, and ``mips_topk`` (which
+    fills its own product in place), against the boolean-index exclusion
+    and one top-k: values and ids bit for bit, ties included."""
+    ex, cnt, k = _exclusion_case(case)
+    u, it = torch.from_numpy(_gauss(62, EX_B, 8)), torch.from_numpy(_gauss(63, EX_I, 8))
+    scores = u @ it.T
+    before = scores.clone()
+    ref_v, ref_i = torch.topk(_boolean_index_exclusion(scores, _t(ex), _t(cnt)), k, dim=1)
+    for v, i in (ttopk.masked_topk(scores, k, _t(ex), _t(cnt)),
+                 ttopk.mips_topk(u, it, k, _t(ex), _t(cnt))):
+        assert torch.equal(v, ref_v) and torch.equal(i, ref_i.to(torch.int32))
+    assert torch.equal(scores, before)
+    if case == "over_excluded":
+        assert (ref_v[2, 2:] == ttopk.EXCLUDE_FILL).all()
+
+
+@pytest.mark.parametrize("case", EXCLUSION_CASES)
+def test_exclusion_mask_fixed_shape(case):
+    ex, cnt, _ = _exclusion_case(case)
+    ex_t, before = _t(ex), _t(ex).clone()
+    mask = ttp.exclusion_mask(EX_I, ex_t, _t(cnt))
+    assert torch.equal(ex_t, before)
+    assert mask.dtype == torch.int8 and mask.shape == (EX_B, EX_I) and mask.is_contiguous()
+    assert torch.equal(mask, _boolean_index_mask(EX_I, ex_t, _t(cnt)))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jtp.exclusion_mask(EX_I, ex, cnt)))
+
+
+@pytest.mark.parametrize("offset", [0, 7])
+def test_exclusion_slots_over_a_stack_of_batches(offset):
+    """Positions for a stack of batches at once are each batch's own, and
+    stand in for items and counts in every helper that takes them."""
+    ex = np.stack([_exclusion_case(c)[0] for c in ("count_zero", "past_catalog", "duplicates")])
+    cnt = np.stack([_exclusion_case(c)[1] for c in ("count_zero", "past_catalog", "duplicates")])
+    ex = ex + offset
+    stack = ttopk.exclusion_slots(EX_I, _t(ex), _t(cnt), offset)
+    assert stack.shape == ex.shape and stack.dtype == torch.int64
+    for j in range(3):
+        one = ttopk.exclusion_slots(EX_I, _t(ex[j]), _t(cnt[j]), offset)
+        assert torch.equal(stack[j], one)
+    if offset == 0:
+        u, it = torch.from_numpy(_gauss(64, EX_B, 8)), torch.from_numpy(_gauss(65, EX_I, 8))
+        for j in range(3):
+            a = ttopk.mips_topk(u, it, 4, _t(ex[j]), _t(cnt[j]))
+            b = ttopk.auto_mips_topk(u, it, 4, exclude_slots=stack[j])
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+            assert torch.equal(ttp.exclusion_mask(EX_I, exclude_slots=stack[j]),
+                               ttp.exclusion_mask(EX_I, _t(ex[j]), _t(cnt[j])))

@@ -24,8 +24,6 @@ from laplace_gnn_recommendation_tpu_torch.train import lightgcn_pipeline
 from laplace_gnn_recommendation_tpu_torch.utils.profiling import NULL_SPAN, tracer
 
 U, I = 60, 40
-RETRIEVE_CHILDREN = ["retrieve.exclusions", "retrieve.upload", "retrieve.score",
-                     "retrieve.readback"]
 
 
 @pytest.fixture
@@ -147,6 +145,10 @@ def test_span_open_at_disable_is_dropped(traced, reenable):
 # ---- where the program records -----------------------------------------------
 
 def test_retrieval_batches_traced(edges):
+    """One request of 21 users in batches of 8: a ``retrieve.request`` root
+    holding the one upload, three batches of one ``retrieve.score`` each,
+    and the one readback; the counters come from the host counts, and the
+    request's one wait is counted."""
     srv = _server(edges)
     users = np.random.default_rng(1).integers(0, U, 21)
     ids_off, scores_off = srv.recommend(users)
@@ -159,20 +161,24 @@ def test_retrieval_batches_traced(edges):
     np.testing.assert_array_equal(ids_on, ids_off)
     np.testing.assert_array_equal(scores_on, scores_off)
 
-    batches = sorted((s for s in spans if s.name == "retrieve.batch"), key=lambda s: s.start)
-    assert len(batches) == 3 and len(spans) == 3 * 5
-    slots = excluded = 0
-    for n, b in enumerate(batches):
-        kids = _children(spans, b)
-        assert [s.name for s in kids] == RETRIEVE_CHILDREN
-        assert all(s.root == b.id and s.thread == b.thread for s in kids)
-        assert all(a.end <= c.start for a, c in zip(kids, kids[1:]))
-        assert b.start <= kids[0].start and kids[-1].end <= b.end
-        assert not any(s.device for s in kids)
-        chunk = np.pad(users[8 * n: 8 * n + 8], (0, max(0, 8 * n + 8 - len(users))))
-        slots += chunk.size * srv._ex.shape[1]
-        excluded += int(srv._exc[chunk].sum())
-    assert counters == {"retrieve.exclusion_slots": slots, "retrieve.excluded_ids": excluded}
+    (req,) = [s for s in spans if s.name == "retrieve.request"]
+    assert req.parent is None and req.root == req.id
+    assert len(spans) == 1 + 1 + 3 * 2 + 1
+    kids = _children(spans, req)
+    assert [s.name for s in kids] == (["retrieve.upload"] + ["retrieve.batch"] * 3
+                                      + ["retrieve.readback"])
+    assert all(s.root == req.id and s.thread == req.thread for s in spans)
+    assert all(a.end <= c.start for a, c in zip(kids, kids[1:]))
+    assert req.start <= kids[0].start and kids[-1].end <= req.end
+    assert not any(s.device for s in spans)
+    for b in kids[1:-1]:
+        (score,) = _children(spans, b)
+        assert score.name == "retrieve.score" and b.start <= score.start <= score.end <= b.end
+    chunk = np.pad(users, (0, 3 * 8 - len(users)))
+    exc = srv._exc.numpy()
+    slots, excluded = chunk.size * srv._ex.shape[1], int(exc[chunk].sum())
+    assert counters == {"retrieve.exclusion_slots": slots, "retrieve.excluded_ids": excluded,
+                        "retrieve.host_waits": 1}
     assert 0 < excluded <= slots
 
 
