@@ -31,9 +31,13 @@ on one NVIDIA H100: ``python3 chip_smoke.py`` from the repository root.
    cardinalities (1,371,980 users × 104,547 items, ~25M train edges) —
    ``select_propagation`` → ``lightgcn_forward`` through kernel A, a quantized
    and an f32 ``RetrievalServer`` answering 1,000 users with train-item
-   exclusions (kernel C), and one ``auto_mips_topk`` call that streams
-   through kernel B. Launch counters are zeroed before and read after. The
-   forward is held against the plain forward in the same mode.
+   exclusions (kernel C, and kernel B's list route: 4 batches of 256), and
+   one ``auto_mips_topk`` call that streams through kernel B's mask route.
+   Launch counters are zeroed before and read after (the list route counts
+   under ``topk_f32_lists``). The forward is held against the plain forward
+   in the same mode; the f32 server's answer against the list route's plain
+   version on the server's own sorted rows, and one batch of its shape on
+   an exact grid, where values and ids must be equal.
 4. The main path once more under ``torch.profiler``: kernel time by name
    and the card's idle share of the host wall time.
 5. Training at the same full width, on ``create_lightgcn_data``'s 80/10/10
@@ -1676,11 +1680,20 @@ def sharded_phase_b(torch, dev, record):
                 fail(f"1x2 train() on rank {r['rank']}: {key} {r[key]} vs {getattr(ref, key)}")
         if r["train_launches"] <= 0:
             fail(f"1x2 train() on rank {r['rank']} launched kernel A no time")
-        if not np.array_equal(r["ids"], ref_ids):
-            fail(f"RetrievalServer(mesh=) on rank {r['rank']}: ids differ from one process's")
     serve_err = max(float(np.abs(r["vals"] - ref_vals).max()) for r in ranks)
     if not serve_err <= 1e-4:
         fail(f"RetrievalServer(mesh=) scores differ by {serve_err}")
+    # one process answers with kernel B's list route and the mesh with the
+    # library product, which sum in other orders: an id may differ only at a
+    # near-tie, where its own score (in f64) is the one process's value there
+    ids_differ = 0
+    for r in ranks:
+        differ = r["ids"] != ref_ids
+        ids_differ = max(ids_differ, int(differ.sum()))
+        own = np.einsum("rd,rkd->rk", u[req].astype(np.float64), it[r["ids"]].astype(np.float64))
+        if (differ & (np.abs(own - ref_vals) > 1e-4)).any() or differ.mean() > 0.01:
+            fail(f"RetrievalServer(mesh=) on rank {r['rank']}: {int(differ.sum())} ids differ "
+                 "from one process's beyond near-ties")
     for r in ranks:
         dp, who = r["dp"], f"2x1 on rank {r['rank']}"
         if abs(dp["loss"] - ref.loss) > TOL_SHARD_LOSS:
@@ -1715,7 +1728,7 @@ def sharded_phase_b(torch, dev, record):
         ranks=[{k: r[k] for k in ("rank", "loss", "recall_test", "precision_test", "train_s",
                                   "train_launches", "serve_s", "shard_rows", "dp")}
                for r in ranks],
-        spawn_wall_s=t_ranks, serve_users=SHARD_SERVE_USERS, serve_ids_equal=True,
+        spawn_wall_s=t_ranks, serve_users=SHARD_SERVE_USERS, serve_ids_differ=ids_differ,
         serve_max_abs_err=serve_err, dryrun_wall_s=t_dry,
         dryrun=[{k: d[k] for k in ("mesh", "lightgcn_loss", "encdec_loss", "pinsage_loss",
                                    "submission_rows", "graph_store")} for d in dry],
@@ -2013,7 +2026,7 @@ def main() -> int:
     from laplace_gnn_recommendation_tpu_torch.ops import spmm_pallas as sp
     from laplace_gnn_recommendation_tpu_torch.ops.multiscale import multiscale_loop
     from laplace_gnn_recommendation_tpu_torch.ops import topk_pallas as tp
-    from laplace_gnn_recommendation_tpu_torch.ops.topk import auto_mips_topk
+    from laplace_gnn_recommendation_tpu_torch.ops.topk import auto_mips_topk, mips_topk
     from laplace_gnn_recommendation_tpu_torch.serving import RetrievalServer
     from laplace_gnn_recommendation_tpu_torch.train.lightgcn_pipeline import (
         select_propagation,
@@ -2446,19 +2459,61 @@ def main() -> int:
     agree = float(np.mean([len(set(a) & set(b)) / 12 for a, b in zip(q_ids, f_ids)]))
     if agree < 0.85:
         fail(f"int8 vs f32 top-12 agreement {agree} < 0.85")
+    # the f32 server's batches went to kernel B's list route: its answer
+    # against the route's plain version on the server's gathered, sorted rows
+    req_t = torch.from_numpy(req).to(dev)
+    l_rows = fserver._ex.index_select(0, req_t)
+    l_cnts = fserver._exc.index_select(0, req_t)
+    l_users = fserver.user_emb.index_select(0, req_t)
+    l_fid = torch.from_numpy(np.asarray(f_ids)).to(dev)
+    lp_v, lp_i = tp.streaming_mips_topk_lists_plain(l_users, fserver.item_emb, 12, l_rows, l_cnts)
+    lists_err = check_topk_ids(torch, "f32 server (kernel B lists)", l_users, fserver.item_emb,
+                               torch.from_numpy(np.asarray(f_scores)).to(dev), l_fid, lp_v,
+                               tp.exclusion_mask(NUM_ITEMS, l_rows, l_cnts), TOL_TOPK_F32)
+    lists_same = float((l_fid.long() == lp_i.long()).float().mean())
+    if not lists_same >= 0.99:
+        fail(f"f32 server (kernel B lists): {lists_same} of ids equal to the plain version's")
+    # one batch of the server's shape (B=256, the catalog, its rows, k=12) on
+    # an exact grid: every score is the same f32 value in any summation
+    # order and many tie, so values and ids equal the plain version's
+    l256 = (l_users[:256].contiguous(), l_rows[:256].contiguous(), l_cnts[:256].contiguous())
+    gen_l = torch.Generator(device=dev).manual_seed(4)
+    g_u = torch.randint(-1, 2, (256, d), generator=gen_l, device=dev).float()
+    g_i = torch.randint(-2, 3, (NUM_ITEMS, d), generator=gen_l, device=dev).float() * 0.25
+    g_v, g_id = tp.streaming_mips_topk_lists(g_u, g_i, 12, *l256[1:])
+    gp_v, gp_id = tp.streaming_mips_topk_lists_plain(g_u, g_i, 12, *l256[1:])
+    if not (torch.equal(g_v, gp_v) and torch.equal(g_id, gp_id)):
+        fail("kernel B lists on the exact grid: values or ids differ from the plain version")
+    run_lists = lambda: tp.streaming_mips_topk_lists(l256[0], fserver.item_emb, 12, *l256[1:])
+    lib_lists = lambda: mips_topk(l256[0], fserver.item_emb, 12, *l256[1:])
+    lists_ms, lists_host_ms = device_ms(torch, run_lists, 10, f"f32 lists B=256 I={NUM_ITEMS} k=12")
+    b_lists = dict(
+        launches=launches.get("topk_f32_lists", 0), max_abs_err=lists_err,
+        ids_equal_share=lists_same, ms=lists_ms, host_ms=lists_host_ms,
+        call_ms=time_ms(torch, run_lists, 10),
+        library_ms=device_ms(torch, lib_lists, 10, f"library f32 lists B=256 I={NUM_ITEMS} k=12")[0],
+        library_call_ms=time_ms(torch, lib_lists, 10),
+        per=f"B=256 I={NUM_ITEMS} k=12, the f32 server's gathered sorted exclusion rows; "
+            "library: mips_topk (product, exclusion, torch.topk)")
+    log("topk_f32 lists (the f32 server's route):", json.dumps(b_lists))
     big_ref_v, _ = tp.streaming_mips_topk_plain(uf[:BIG_B], big_items, 12, big_mask)
     big_err = float((big_v - big_ref_v).abs().max())
     if not big_err <= TOL_TOPK_F32:
         fail(f"auto_mips_topk streaming result off by {big_err}")
-    for key in ("segsum", "topk_f32", "topk_int8"):
+    for key in ("segsum", "topk_f32", "topk_f32_lists", "topk_int8"):
         if launches.get(key, 0) <= 0:
             fail(f"kernel {key} was not launched on the main path")
-    if launches["topk_int8"] != -(-SERVE_USERS // 256):
-        fail(f"kernel C launched {launches['topk_int8']} times for {SERVE_USERS} users")
+    for key in ("topk_int8", "topk_f32_lists"):
+        if launches[key] != -(-SERVE_USERS // 256):
+            fail(f"{key} launched {launches[key]} times for {SERVE_USERS} users")
+    if launches["topk_f32"] != 1:
+        fail(f"kernel B's mask route launched {launches['topk_f32']} times, not once "
+             "(auto_mips_topk)")
     record["checks"] = dict(forward_mode="bf16" if prop.gather_bf16 else "f32",
                             forward_step_max_abs_err=step_err, forward_max_abs_err=fwd_err,
                             forward_vs_f32_plain=bf16_vs_f32, int8_f32_top12_agreement=agree,
-                            auto_stream_max_abs_err=big_err)
+                            auto_stream_max_abs_err=big_err, f32_server_lists_max_abs_err=lists_err,
+                            f32_server_lists_ids_equal_share=lists_same)
     log("checks:", json.dumps(record["checks"]))
 
     # ---- trace: the main path once more under torch.profiler ----------------
@@ -2536,7 +2591,8 @@ def main() -> int:
         replaces="laplace_gnn_recommendation_tpu/ops/topk_pallas.py:69 (_kernel), :93 (_kernel_masked)",
         launches=launches["topk_f32"], max_abs_err=b_main["max_abs_err"], **timed(b_main),
         max_abs_err_odd_widths=b_err_odd,
-        per=f"B={BIG_B} I={BIG_I} k=12 masked",
+        per=f"B={BIG_B} I={BIG_I} k=12 masked (the mask route)",
+        lists={key: v for key, v in b_lists.items()},
         **timed(b_k256, "k256_"), k256_per="B=256 I=104547 k=256 masked",
         pinsage_launches=pinsage_launches("topk_f32"),
     )

@@ -3,12 +3,16 @@
 // Replaces the Pallas kernels `_kernel` and `_kernel_masked` of
 // laplace_gnn_recommendation_tpu/ops/topk_pallas.py (`streaming_mips_topk`,
 // `streaming_mips_topk_masked`): one kernel with a nullable int8 exclusion
-// mask.
+// mask. A second instantiation takes exclusion lists instead of a mask
+// (`topk_f32_lists_launch`; the port's single-device f32 retrieval server).
 //
 // Semantics kept from the Pallas fold (`_fold_topk`): the result is the k
 // best items by the total order (score descending, item id ascending); a
-// slot that no item fills holds (NEG_INF = -FLT_MAX, id 0); an excluded item
-// is never a candidate, so it never displaces an unfilled slot. Every
+// slot that no item fills holds (NEG_INF = -FLT_MAX, id 0); an item the mask
+// excludes is never a candidate, so it never displaces an unfilled slot.
+// An item the lists exclude is a candidate that scores `fill` (the
+// materializing path's EXCLUDE_FILL), so an over-excluded row answers its
+// excluded items at `fill`, lowest ids first, as that path ranks them. Every
 // comparison below uses that total order, so the result does not depend on
 // the order in which candidates arrive.
 //
@@ -33,6 +37,17 @@
 //   is staged in column chunks of 64, 32, ... floats (`chunk_cols`), one
 //   chunk a pipeline step, and the 4×8 sums carry over its chunks; the
 //   users are always staged whole.
+// * Exclusion lists (the list instantiation): user b's excluded ids are the
+//   first count[b] entries of row b of an int32 [B, X] table, in ascending
+//   order. A [B, I] mask would be B·I bytes read (and built) a batch; the
+//   lists are B·X·4 bytes, each row read about once a split. Tiles are
+//   walked in increasing order, so each thread keeps, for each of its 4
+//   users, a cursor into the row and the next excluded id (found at the
+//   start by binary search for the split's first item) in its own shared
+//   slots (the mask tiles' space, which this instantiation does not use):
+//   a tile costs one shared load and one comparison a user, and a tile that
+//   holds excluded items walks them, each thread marking those in its 8
+//   columns. No slot is shared, so no barrier is added.
 // * Fold (topk_fold.cuh, shared with kernel C): a half-warp holds all
 //   scores of 4 users, so a warp owns 8 users' lists outright and folds
 //   without block barriers. A score that beats its
@@ -77,14 +92,26 @@ int chunk_cols(int d, int k) {
 
 size_t partial_smem_bytes(int d, int k) { return smem_bytes(d, chunk_cols(d, k), k); }
 
+// Per-thread list state in shared memory: for each of a thread's 4 users,
+// its cursor, the row's end and the next excluded id, each at
+// slot(i) = (i·16 + ty)·16 + tx, so the two half-warps of a warp read 32
+// distinct banks.
+constexpr int kSlots = kUsers * 16;
+static_assert(3 * kSlots * sizeof(int32_t) <= 2 * kUsers * kTile, "list state fits the mask tiles");
+
 // kChunked: item tiles staged in column chunks of dc floats (wide rows);
 // the whole-row instantiation folds every chunk index to a constant.
-template <bool kChunked>
+// kLists: exclusions from sorted lists (excl, excl_cnt; excluded items score
+// excl_fill) instead of the mask, which this instantiation never reads.
+template <bool kChunked, bool kLists>
 __global__ void __launch_bounds__(kThreads, 2) topk_f32_partial_kernel(
     const float* __restrict__ users, const float* __restrict__ items,
-    const int8_t* __restrict__ mask, int64_t b_total, int64_t i_total, int d, int dc, int k,
-    int64_t split_len, float* __restrict__ part_v, int32_t* __restrict__ part_i) {
+    const int8_t* __restrict__ mask_in, const int32_t* __restrict__ excl,
+    const int32_t* __restrict__ excl_cnt, int64_t excl_x, float excl_fill, int64_t b_total,
+    int64_t i_total, int d, int dc, int k, int64_t split_len, float* __restrict__ part_v,
+    int32_t* __restrict__ part_i) {
   extern __shared__ float4 smem4[];
+  const int8_t* mask = kLists ? nullptr : mask_in;
   const int K = list_len(k);
   const int L = K + kBuf;
   const int stride = d + 4, d4 = d / 4;            // staged users: whole rows
@@ -156,9 +183,32 @@ __global__ void __launch_bounds__(kThreads, 2) topk_f32_partial_kernel(
     thr_i[i] = 0;
     user_ok[i] = b0 + 4 * ty + i < b_total;
   }
+  int32_t* lstate = reinterpret_cast<int32_t*>(ms) + ty * 16 + tx;   // + i·256: user i's slot
+  if constexpr (kLists) {
+    // each user's first excluded id at or past lo, by binary search
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int cur = 0, end = 0;
+      int32_t next = INT32_MAX;
+      if (user_ok[i]) {
+        const int32_t* row = excl + (b0 + 4 * ty + i) * excl_x;
+        const int32_t n = excl_cnt[b0 + 4 * ty + i];
+        end = n < 0 ? 0 : n > excl_x ? static_cast<int>(excl_x) : n;
+        int hi_pos = end;
+        while (cur < hi_pos) {
+          const int mid = (cur + hi_pos) >> 1;
+          if (row[mid] < lo) cur = mid + 1; else hi_pos = mid;
+        }
+        if (cur < end) next = row[cur];
+      }
+      lstate[i * 256] = cur;
+      lstate[i * 256 + kSlots] = end;
+      lstate[i * 256 + 2 * kSlots] = next;
+    }
+  }
   const float* urow = us + 4 * ty * stride;
   const int nsteps = ntiles * nchunks;
-  uint32_t ok_bits = 0;
+  uint32_t ok_bits = 0, ex_bits = 0;
   float acc[4][8];
 
   for (int st = 0; st < nsteps; ++st) {
@@ -185,6 +235,28 @@ __global__ void __launch_bounds__(kThreads, 2) topk_f32_partial_kernel(
           const int item = tx + 16 * j;
           const bool ok = user_ok[i] && item < n && (mrow == nullptr || mrow[item] == 0);
           ok_bits |= static_cast<uint32_t>(ok) << (8 * i + j);
+        }
+      }
+      if constexpr (kLists) {
+        // this tile's excluded items, user by user: bit 8·i + j as ok_bits
+        ex_bits = 0;
+        const int64_t t_end = t0 + n;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          int32_t next = lstate[i * 256 + 2 * kSlots];
+          if (next < t_end) {
+            int cur = lstate[i * 256];
+            const int end = lstate[i * 256 + kSlots];
+            const int32_t* row = excl + (b0 + 4 * ty + i) * excl_x;
+            do {   // next ≥ t0: earlier tiles consumed every smaller id
+              const int off = static_cast<int>(next - t0);
+              if ((off & 15) == tx) ex_bits |= 1u << (8 * i + (off >> 4));
+              ++cur;
+              next = cur < end ? row[cur] : INT32_MAX;
+            } while (next < t_end);
+            lstate[i * 256] = cur;
+            lstate[i * 256 + 2 * kSlots] = next;
+          }
         }
       }
 #pragma unroll
@@ -219,6 +291,9 @@ __global__ void __launch_bounds__(kThreads, 2) topk_f32_partial_kernel(
         uint32_t pend = 0;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
+          if constexpr (kLists) {
+            if ((ex_bits >> (8 * i + j)) & 1u) acc[i][j] = excl_fill;
+          }
           const int32_t id = static_cast<int32_t>(t0 + tx + 16 * j);
           const bool c = ((ok_bits >> (8 * i + j)) & 1u) && better(acc[i][j], id, thr_v[i], thr_i[i]);
           pend |= static_cast<uint32_t>(c) << j;
@@ -240,20 +315,25 @@ extern "C" int64_t topk_f32_smem_bytes(int64_t d, int64_t k) {
 
 // The catalog split for (b, i, d, k): enough blocks to fill every SM at the
 // occupancy the scoring kernel reaches, each split at least kMinSplit items.
-// Writes {num_splits, split_len} to `plan`.
+// Writes {num_splits, split_len} to `plan`. Both instantiations take the
+// same shared memory and are held to the same occupancy by their launch
+// bounds, so one plan serves both.
 extern "C" int topk_f32_plan(int64_t b, int64_t i, int64_t d, int64_t k, void* plan) {
   const int dc = chunk_cols(static_cast<int>(d), static_cast<int>(k));
   const size_t smem = smem_bytes(static_cast<int>(d), dc, static_cast<int>(k));
-  return dc < d ? plan_splits(topk_f32_partial_kernel<true>, smem, b, i, kTile, kMinSplit,
+  return dc < d ? plan_splits(topk_f32_partial_kernel<true, false>, smem, b, i, kTile, kMinSplit,
                               static_cast<int64_t*>(plan))
-                : plan_splits(topk_f32_partial_kernel<false>, smem, b, i, kTile, kMinSplit,
+                : plan_splits(topk_f32_partial_kernel<false, false>, smem, b, i, kTile, kMinSplit,
                               static_cast<int64_t*>(plan));
 }
 
-extern "C" int topk_f32_launch(const void* users, const void* items, const void* mask,
-                               int64_t b, int64_t i, int64_t d, int64_t k, int64_t num_splits,
-                               int64_t split_len, void* part_v, void* part_i, void* out_v,
-                               void* out_i, void* stream) {
+namespace {
+
+template <bool kLists>
+int launch(const void* users, const void* items, const void* mask, const void* excl,
+           const void* excl_cnt, int64_t excl_x, float excl_fill, int64_t b, int64_t i,
+           int64_t d, int64_t k, int64_t num_splits, int64_t split_len, void* part_v,
+           void* part_i, void* out_v, void* out_i, void* stream) {
   if (b == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d % 4 != 0 || reinterpret_cast<uintptr_t>(users) % 16 != 0 ||
@@ -263,7 +343,8 @@ extern "C" int topk_f32_launch(const void* users, const void* items, const void*
   const int dc = chunk_cols(static_cast<int>(d), static_cast<int>(k));
   const size_t smem = smem_bytes(static_cast<int>(d), dc, static_cast<int>(k));
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = dc < d ? topk_f32_partial_kernel<true> : topk_f32_partial_kernel<false>;
+  auto kern = dc < d ? topk_f32_partial_kernel<true, kLists>
+                     : topk_f32_partial_kernel<false, kLists>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -271,12 +352,38 @@ extern "C" int topk_f32_launch(const void* users, const void* items, const void*
                   static_cast<unsigned>(num_splits));
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(users), static_cast<const float*>(items),
-      static_cast<const int8_t*>(mask), b, i, static_cast<int>(d), dc, static_cast<int>(k),
-      split_len, static_cast<float*>(part_v), static_cast<int32_t*>(part_i));
+      static_cast<const int8_t*>(mask), static_cast<const int32_t*>(excl),
+      static_cast<const int32_t*>(excl_cnt), excl_x, excl_fill, b, i, static_cast<int>(d), dc,
+      static_cast<int>(k), split_len, static_cast<float*>(part_v),
+      static_cast<int32_t*>(part_i));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_merge(static_cast<const float*>(part_v),
                                        static_cast<const int32_t*>(part_i), b, num_splits, k,
                                        static_cast<float*>(out_v), static_cast<int32_t*>(out_i),
                                        st));
+}
+
+}  // namespace
+
+// Kernel B with a nullable int8 [b, i] mask (1 = excluded, never a candidate).
+extern "C" int topk_f32_launch(const void* users, const void* items, const void* mask,
+                               int64_t b, int64_t i, int64_t d, int64_t k, int64_t num_splits,
+                               int64_t split_len, void* part_v, void* part_i, void* out_v,
+                               void* out_i, void* stream) {
+  return launch<false>(users, items, mask, nullptr, nullptr, 0, 0.f, b, i, d, k, num_splits,
+                       split_len, part_v, part_i, out_v, out_i, stream);
+}
+
+// Kernel B with exclusion lists: row r of the int32 [b, x] table `excl`
+// holds user r's excluded ids in ascending order in its first excl_cnt[r]
+// slots (clamped to [0, x]; ids outside the catalog are never met); an
+// excluded item scores `fill`.
+extern "C" int topk_f32_lists_launch(const void* users, const void* items, const void* excl,
+                                     const void* excl_cnt, int64_t x, float fill, int64_t b,
+                                     int64_t i, int64_t d, int64_t k, int64_t num_splits,
+                                     int64_t split_len, void* part_v, void* part_i, void* out_v,
+                                     void* out_i, void* stream) {
+  return launch<true>(users, items, nullptr, excl, excl_cnt, x, fill, b, i, d, k, num_splits,
+                      split_len, part_v, part_i, out_v, out_i, stream);
 }

@@ -35,6 +35,39 @@ STREAMING_MAX_BATCH = 512
 STREAMING_TILE = 512
 
 
+def streams_f32(device_type: str, batch: int, num_items: int, dim: int, k: int) -> bool:
+    """Whether a single-device f32 batch of ``batch`` users against
+    ``num_items`` items at width ``dim`` is answered by kernel B with
+    exclusion lists (``topk_pallas.streaming_mips_topk_lists``) rather than
+    by :func:`mips_topk`: on a CUDA card, for batches up to
+    ``STREAMING_MAX_BATCH``, ``k`` up to ``MAX_K`` and the catalog, where a
+    block of kernel B fits the card's shared memory at (dim, k)."""
+    from .topk_pallas import MAX_K, kernel_b_fits
+
+    return (device_type == "cuda" and 1 <= batch <= STREAMING_MAX_BATCH
+            and 1 <= k <= min(MAX_K, num_items) and kernel_b_fits(dim, k))
+
+
+def sorted_exclusions(
+    num_items: int,
+    exclude_items: torch.Tensor,  # int [N, X], -1 pads
+    exclude_count: Optional[torch.Tensor] = None,  # int [N]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rows int32 [N, X], counts int32 [N]): each row's valid ids (in the
+    catalog, at a slot below its count) in ascending order in its first
+    ``count`` slots, -1 after; the layout kernel B's list route reads. The
+    same exclusions as the input in every helper of this module."""
+    x = exclude_items.shape[1]
+    dev = exclude_items.device
+    valid = (exclude_items >= 0) & (exclude_items < num_items)
+    if exclude_count is not None:
+        valid &= torch.arange(x, device=dev) < exclude_count[:, None]
+    big = torch.iinfo(torch.int32).max
+    rows = torch.where(valid, exclude_items.to(torch.int32), big).sort(dim=1).values
+    return (torch.where(rows == big, -1, rows).contiguous(),
+            valid.sum(dim=1, dtype=torch.int32))
+
+
 def exclusion_slots(
     num_cols: int,
     exclude_items: torch.Tensor,  # int [..., B, X], -1 pads

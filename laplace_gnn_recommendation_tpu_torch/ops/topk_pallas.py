@@ -20,6 +20,14 @@ Semantics (those of the Pallas fold ``_fold_topk``): the k best items by
 (``NEG_INF``, id 0); excluded items score ``NEG_INF`` and never displace an
 unfilled slot. ``k`` is at most ``MAX_K``.
 
+Kernel B also takes exclusions as sorted per-user lists
+(:func:`streaming_mips_topk_lists`): an [B, X] int32 table whose row holds
+its user's excluded ids in ascending order in its first ``count`` slots
+(``ops/topk.sorted_exclusions`` makes one). No [B, I] mask is built or read.
+An excluded item there scores ``fill`` (``EXCLUDE_FILL``) and stays a
+candidate, as in the materializing path, so a row with fewer than k
+eligible items answers its excluded items at ``fill``, lowest ids first.
+
 Every wrapper launches its kernel for tensors on the card and runs the
 plain version (``*_plain``: full scores, stable sort) for tensors on the CPU.
 """
@@ -33,7 +41,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .topk import exclusion_slots
+from .topk import EXCLUDE_FILL, apply_exclusion, exclusion_slots
 
 NEG_INF = float(np.finfo(np.float32).min)
 MAX_K = 256
@@ -48,6 +56,7 @@ _SIGNATURES = {
 }
 _F32_SIGNATURES = {
     "topk_f32_launch": [_P, _P, _P] + [_I64] * 6 + [_P] * 5,
+    "topk_f32_lists_launch": [_P] * 4 + [_I64, ctypes.c_float] + [_I64] * 6 + [_P] * 5,
     "topk_f32_plan": [_I64] * 4 + [_P],
     "topk_f32_smem_bytes": [_I64, _I64],
 }
@@ -120,6 +129,28 @@ def streaming_mips_topk_plain(
     return topk_fold_plain(scores, k)
 
 
+def streaming_mips_topk_lists_plain(
+    user_emb: torch.Tensor,
+    item_emb: torch.Tensor,
+    k: int,
+    exclude_items: torch.Tensor,
+    exclude_count: torch.Tensor,
+    fill: float = EXCLUDE_FILL,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel B's list route: full scores, ``fill``
+    at every valid slot (an id in the catalog, at a slot below the row's
+    count), the fold's order. Raises where a row's first ``count`` ids
+    (clamped to [0, X]) are not in ascending order, which the kernel
+    assumes and does not check."""
+    x = exclude_items.shape[1]
+    inside = torch.arange(1, x, device=exclude_items.device) < exclude_count[:, None]
+    if bool(((exclude_items.diff(dim=1) < 0) & inside).any()):
+        raise ValueError("exclusion rows must hold their first count ids in ascending order "
+                         "(ops/topk.sorted_exclusions)")
+    scores = user_emb.float() @ item_emb.float().T
+    return topk_fold_plain(apply_exclusion(scores, exclude_items, exclude_count, fill), k)
+
+
 def streaming_mips_topk_int8_plain(
     user_emb: torch.Tensor,
     q_items: torch.Tensor,
@@ -161,9 +192,9 @@ def _plan(kernel: str, b: int, i: int, d: int, k: int, device_index: int) -> Tup
     current card, from its C-side plan. Cached per shape, so a server's
     repeated batches skip the plan's CUDA queries. Raises where a block at
     (d, k) needs more shared memory than the card has."""
-    source, signatures, smem_fn, plan_fn = _KERNELS[kernel]
+    source, signatures, _, plan_fn = _KERNELS[kernel]
     lib = _build.load(source, signatures)
-    smem = getattr(lib, smem_fn)(d, k)
+    smem = _smem_bytes(kernel, d, k)
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(f"D={d}, k={k} needs {smem} B of shared memory per block")
     plan = (ctypes.c_int64 * 2)()
@@ -195,6 +226,34 @@ def pad_columns(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def kernel_b_fits(d: int, k: int) -> bool:
+    """Whether a block of kernel B at width ``d`` (padded to a multiple of
+    4) and ``k`` fits the card's shared memory (a call on the card)."""
+    return _smem_bytes("topk_f32", -(-int(d) // 4) * 4, int(k)) <= _MAX_SMEM_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(kernel: str, d: int, k: int) -> int:
+    source, signatures, smem_fn, _ = _KERNELS[kernel]
+    return int(getattr(_build.load(source, signatures), smem_fn)(d, k))
+
+
+def _f32_operands(user_emb, item_emb):
+    """Kernel B's checked operands: (users, items, b, i, d, device), the
+    tables zero-padded to a width that is a multiple of 4."""
+    dev = user_emb.device
+    b, d = user_emb.shape
+    i = int(item_emb.shape[0])
+    _check(user_emb, "user_emb", torch.float32, (b, d), dev)
+    _check(item_emb, "item_emb", torch.float32, (i, d), dev)
+    if d % 4:
+        user_emb, item_emb = pad_columns(user_emb), pad_columns(item_emb)
+        d = int(user_emb.shape[1])
+    if user_emb.data_ptr() % 16 or item_emb.data_ptr() % 16:
+        raise ValueError(f"kernel B takes 16-byte aligned tensors, got D={d}")
+    return user_emb, item_emb, b, i, d, dev
+
+
 def streaming_mips_topk(
     user_emb: torch.Tensor,   # f32 [B, D]
     item_emb: torch.Tensor,   # f32 [I, D]
@@ -209,15 +268,7 @@ def streaming_mips_topk(
         return streaming_mips_topk_plain(user_emb, item_emb, k, excl_mask)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    b, d = user_emb.shape
-    i = int(item_emb.shape[0])
-    _check(user_emb, "user_emb", torch.float32, (b, d), dev)
-    _check(item_emb, "item_emb", torch.float32, (i, d), dev)
-    if d % 4:
-        user_emb, item_emb = pad_columns(user_emb), pad_columns(item_emb)
-        d = int(user_emb.shape[1])
-    if user_emb.data_ptr() % 16 or item_emb.data_ptr() % 16:
-        raise ValueError(f"kernel B takes 16-byte aligned tensors, got D={d}")
+    user_emb, item_emb, b, i, d, dev = _f32_operands(user_emb, item_emb)
     mask_ptr = _mask_ptr(excl_mask, b, i, dev)
     s, split_len = _plan("topk_f32", b, i, d, k, dev.index)
     part_v, part_i, vals, idx = _outputs(b, s, k, dev)
@@ -229,6 +280,46 @@ def streaming_mips_topk(
     )
     _build.check(rc, "topk_f32_launch")
     _build.launches["topk_f32"] += 1
+    return vals, idx
+
+
+def streaming_mips_topk_lists(
+    user_emb: torch.Tensor,        # f32 [B, D]
+    item_emb: torch.Tensor,        # f32 [I, D]
+    k: int,
+    exclude_items: torch.Tensor,   # int32 [B, X], ascending in each row's first count slots
+    exclude_count: torch.Tensor,   # int32 [B]
+    fill: float = EXCLUDE_FILL,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k inner-product items per user with exclusion lists: (values f32
+    [B, k], ids int32 [B, k]) — kernel B's list route. An excluded item
+    scores ``fill`` and stays a candidate. The first ``count`` ids of each
+    row must be in ascending order (``ops/topk.sorted_exclusions``): the
+    kernel does not check it, its plain version raises. Counts are clamped
+    to [0, X], and ids outside the catalog are never met. Launches count
+    under ``topk_f32_lists``."""
+    k = _check_k(k)
+    dev = user_emb.device
+    if dev.type == "cpu":
+        return streaming_mips_topk_lists_plain(user_emb, item_emb, k, exclude_items,
+                                               exclude_count, fill)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    user_emb, item_emb, b, i, d, dev = _f32_operands(user_emb, item_emb)
+    x = int(exclude_items.shape[1])
+    _check(exclude_items, "exclude_items", torch.int32, (b, x), dev)
+    _check(exclude_count, "exclude_count", torch.int32, (b,), dev)
+    s, split_len = _plan("topk_f32", b, i, d, k, dev.index)
+    part_v, part_i, vals, idx = _outputs(b, s, k, dev)
+    lib = _build.load("topk_f32", _F32_SIGNATURES)
+    rc = lib.topk_f32_lists_launch(
+        user_emb.data_ptr(), item_emb.data_ptr(), exclude_items.data_ptr(),
+        exclude_count.data_ptr(), x, float(fill), b, i, d, k, s, split_len,
+        part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+        _build.stream_ptr(dev),
+    )
+    _build.check(rc, "topk_f32_lists_launch")
+    _build.launches["topk_f32_lists"] += 1
     return vals, idx
 
 

@@ -1,7 +1,11 @@
 """Batch serving — counterpart of the JAX package's ``serving.py``.
 
 * :class:`RetrievalServer` holds user/item embedding tables on the device
-  and answers ``recommend(user_ids)`` with exclusion-masked top-k MIPS.
+  and answers ``recommend(user_ids)`` with exclusion-masked top-k MIPS. Its
+  f32 single-device tier answers each batch on a card with kernel B, which
+  reads the users' sorted exclusion lists (``ops/topk.streams_f32`` decides
+  from the shapes, once, at construction), and elsewhere with the library
+  product and top-k (``ops/topk.mips_topk``).
 * :class:`RankingServer` re-ranks matcher candidates: padded subgraph batch
   (host sampler) → hetero SAGE ``infer`` on the device → top-k item ids.
 
@@ -34,14 +38,22 @@ from .data.sampler import SubgraphSampler, derive_budgets
 from .models import sage
 from .ops.topk import (
     STREAMING_MAX_BATCH,
-    auto_mips_topk,
     exclusion_slots,
+    mips_topk,
     mips_topk_int8,
     sharded_mips_topk,
+    sorted_exclusions,
+    streams_f32,
     top_k_lowest_first,
 )
 from .parallel.mesh import model_parts, round_up
-from .ops.topk_pallas import exclusion_mask, row_quantize, streaming_mips_topk_int8
+from .ops.topk_pallas import (
+    exclusion_mask,
+    row_quantize,
+    streaming_mips_topk,
+    streaming_mips_topk_int8,
+    streaming_mips_topk_lists,
+)
 from .utils.profiling import tracer
 
 QUANTIZED_TILE = 2048  # catalog rows are padded to a multiple of this
@@ -114,17 +126,23 @@ class RetrievalServer:
             # exclusion slots of a batch's materialized scores
             self._tail_slots = exclusion_slots(self.items_padded, torch.arange(
                 self.num_items, self.items_padded, device=dev).expand(self.batch_size, -1))
-        # the exclusion table lives on the device; each request gathers its
-        # rows there. The host keeps the counts alone, for the tracer.
+        # the exclusion table lives on the device, each row's catalog ids in
+        # ascending order, -1 after (kernel B's list route reads it so; the
+        # other tiers take any order); each request gathers its rows there.
+        # The host keeps the counts alone, for the tracer.
         self._ex = self._exc = self._exc_host = None
         if exclude_edges is not None:
             eu, ei = exclude_edges
-            ex, self._exc_host = padded_user_items(
+            ex, exc = padded_user_items(
                 np.arange(self.num_users, dtype=np.int32),
                 np.asarray(eu, np.int64), np.asarray(ei),
             )
-            self._ex = torch.from_numpy(ex).to(dev)
-            self._exc = torch.from_numpy(self._exc_host).to(dev)
+            self._ex, self._exc = sorted_exclusions(
+                self.num_items, torch.from_numpy(ex).to(dev), torch.from_numpy(exc).to(dev))
+            self._exc_host = self._exc.cpu().numpy()
+        # the f32 single-device tier's step, from the shapes: kernel B with
+        # the exclusion lists, or the library product and top-k
+        self._streams = self._streams_at(self.k)
 
     @classmethod
     def from_lightgcn_artifacts(
@@ -164,6 +182,18 @@ class RetrievalServer:
             uvec, self._q_items, self._item_scales, k, excl_mask=mask
         )
 
+    def _streams_at(self, k):
+        """Whether kernel B's list route answers this server's batches at
+        ``k`` (``ops/topk.streams_f32``; the f32 single-device tier only)."""
+        return not (self._sharded or self.quantized) and streams_f32(
+            self.device.type, self.batch_size, self.num_items, self.dim, k)
+
+    def _streamed_step(self, uvec, rows, counts, k):
+        tracer.count("retrieve.streamed_batches")
+        if rows is None:
+            return streaming_mips_topk(uvec, self.item_emb, k)
+        return streaming_mips_topk_lists(uvec, self.item_emb, k, rows, counts)
+
     def recommend(
         self, user_ids: Sequence[int], k: Optional[int] = None
     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -175,7 +205,9 @@ class RetrievalServer:
         in its score buffer (``ops/topk.exclusion_slots``), once a request;
         each batch then issues product, exclusion and top-k on its slice
         without waiting on the device; the answer comes back in one copy of
-        ids and one of scores, the request's only wait.
+        ids and one of scores, the request's only wait. On the kernel B tier
+        a batch's exclusions are its slice of the gathered rows and counts,
+        read by the kernel: no positions and no [batch, I] scores.
 
         Spans of :data:`tracer`: ``retrieve.request`` is the root, with
         children ``retrieve.upload`` (the copy, the gathers and the
@@ -186,8 +218,12 @@ class RetrievalServer:
         ``retrieve.excluded_ids`` (the valid ids among them), from the host
         counts; ``retrieve.host_waits``, one at every point where the host
         waits for the device (the readback; the sharded tier's collectives
-        are not counted)."""
+        are not counted); ``retrieve.streamed_batches``, one a batch that
+        kernel B answers."""
         k = self.k if k is None else int(k)
+        # a request's own k keeps the kernel B tier only where the rule
+        # still holds for it
+        streamed = self._streams if k == self.k else self._streams_at(k)
         users = np.asarray(user_ids, np.int64)
         n = len(users)
         b = self.batch_size
@@ -205,12 +241,13 @@ class RetrievalServer:
                 if self.device.type == "cuda":
                     ids = ids.pin_memory().to(self.device, non_blocking=True)
                 uvecs = self.user_emb.index_select(0, ids).view(batches, b, -1)
-                slots = [None] * batches
+                slots = rows = counts = [None] * batches
                 if self._ex is not None:
-                    # [batches, b, X]: each batch's positions in its scores
-                    slots = exclusion_slots(
-                        self._cols, self._ex.index_select(0, ids).view(batches, b, -1),
-                        self._exc.index_select(0, ids).view(batches, b), self._offset)
+                    # [batches, b, X] rows and [batches, b] counts
+                    rows = self._ex.index_select(0, ids).view(batches, b, -1)
+                    counts = self._exc.index_select(0, ids).view(batches, b)
+                    if not streamed:   # each batch's positions in its scores
+                        slots = exclusion_slots(self._cols, rows, counts, self._offset)
             parts = []
             for j in range(batches):
                 with tracer.span("retrieve.batch"), tracer.span("retrieve.score"):
@@ -223,8 +260,10 @@ class RetrievalServer:
                                                        exclude_slots=sl))
                     elif self.quantized:
                         parts.append(self._quantized_step(uvec, sl, k))
+                    elif streamed:
+                        parts.append(self._streamed_step(uvec, rows[j], counts[j], k))
                     else:
-                        parts.append(auto_mips_topk(uvec, self.item_emb, k, exclude_slots=sl))
+                        parts.append(mips_topk(uvec, self.item_emb, k, exclude_slots=sl))
             with tracer.span("retrieve.readback"):
                 return self._readback(parts, n)
 

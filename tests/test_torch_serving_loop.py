@@ -4,7 +4,9 @@ the device, one upload and one readback a request, no wait in between.
 Each tier's answer is held, ids equal and scores bit-equal, against a plain
 per-batch loop of the form the server had: the padded chunk's exclusion rows
 from the host table, a boolean-index exclusion (or mask) and one top-k per
-batch, each batch copied back on its own. The sharded tier's case runs in
+batch, each batch copied back on its own. On a card the f32 tier answers
+with kernel B's list route instead, held against that route's plain version
+in the card test. The sharded tier's case runs in
 ``tests/test_torch_sharded_production.py``'s spawn.
 
 The ``requires_cuda`` test runs on a card (it skips here):
@@ -23,6 +25,7 @@ from laplace_gnn_recommendation_tpu_torch.ops.topk import EXCLUDE_FILL
 from laplace_gnn_recommendation_tpu_torch.ops.topk_pallas import (
     row_quantize,
     streaming_mips_topk_int8,
+    streaming_mips_topk_lists_plain,
 )
 from laplace_gnn_recommendation_tpu_torch.serving import RetrievalServer
 from laplace_gnn_recommendation_tpu_torch.utils.profiling import tracer
@@ -82,10 +85,16 @@ def old_recommend(srv, users, ex_host, exc_host, k):
     return ids, scores
 
 
-def _tables(num_users, num_items, seed):
+def _tables(num_users, num_items, seed, grid=False):
+    """Gaussian tables, or with ``grid`` users in {-1, 0, 1} and items in
+    quarters of [-0.5, 0.5]: every score then is the same f32 value in any
+    summation order, and many are tied."""
     rng = np.random.default_rng(seed)
     edges = random_bipartite_edges(seed=seed, num_users=num_users, num_items=num_items,
                                    avg_degree=8)
+    if grid:
+        return (rng.integers(-1, 2, (num_users, D)).astype(np.float32),
+                (rng.integers(-2, 3, (num_items, D)) * 0.25).astype(np.float32), edges)
     return (rng.normal(size=(num_users, D)).astype(np.float32),
             rng.normal(size=(num_items, D)).astype(np.float32), edges)
 
@@ -105,7 +114,11 @@ def test_recommend_equals_per_batch_loop(tables, tier, size):
                           quantized=tier != "f32", device="cpu")
     ex_host, exc_host = padded_user_items(np.arange(U, dtype=np.int32),
                                           edges[0].astype(np.int64), edges[1])
-    np.testing.assert_array_equal(srv._ex.numpy(), ex_host)
+    # the server holds each row's ids in ascending order, -1 after
+    big = np.iinfo(np.int32).max
+    ex_sorted = np.sort(np.where(ex_host < 0, big, ex_host), axis=1)
+    np.testing.assert_array_equal(srv._ex.numpy(), np.where(ex_sorted == big, -1, ex_sorted))
+    np.testing.assert_array_equal(srv._exc.numpy(), exc_host)
     users = np.random.default_rng(n).integers(0, U, n)
     users[0] = int(np.argmax(exc_host))   # the widest exclusion row
     ids, scores = srv.recommend(users)
@@ -132,12 +145,16 @@ def test_empty_request(tables):
 def test_batch_loop_never_waits_on_the_card(tier):
     """A request of 8 batches under ``set_sync_debug_mode("warn")``: at most
     two synchronising calls, both inside the readback, and
-    ``retrieve.host_waits`` counts them; the answer equals the plain
-    per-batch loop's on the card, bit for bit (the f32 tier's library
-    product and top-k, the quantized tier's kernel C)."""
+    ``retrieve.host_waits`` counts them. The quantized tier (kernel C)
+    answers as the plain per-batch loop does on the card, bit for bit. The
+    f32 tier answers every batch with kernel B's list route
+    (``retrieve.streamed_batches`` counts 8), whose summation order is not
+    the library product's: its answer is held against the list route's
+    plain version on tables whose scores are exact in any order (ids equal,
+    ties to the lower id; values within 1e-6 relative)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card on this machine")
-    ue, ie, edges = _tables(4096, 3000, 6)
+    ue, ie, edges = _tables(4096, 3000, 6, grid=tier == "f32")
     srv = RetrievalServer(ue, ie, k=K, exclude_edges=edges, batch_size=256,
                           quantized=tier == "quantized", device="cuda")
     users = np.random.default_rng(7).permutation(4096)[: 8 * 256]
@@ -184,7 +201,16 @@ def test_batch_loop_never_waits_on_the_card(tier):
     assert 1 <= len(syncs) <= 2 and all(inside for inside, _, _ in syncs), syncs
     assert counters["retrieve.host_waits"] == len(syncs)
     assert [s.name for s in spans].count("retrieve.batch") == 8
+    assert counters.get("retrieve.streamed_batches", 0) == (8 if tier == "f32" else 0)
 
+    if tier == "f32":
+        u = torch.from_numpy(users).to(srv.device)
+        ref_scores, ref_ids = streaming_mips_topk_lists_plain(
+            srv.user_emb[u], srv.item_emb, K, srv._ex[u], srv._exc[u])
+        ref_ids, ref_scores = ref_ids.cpu().numpy(), ref_scores.cpu().numpy()
+        np.testing.assert_array_equal(ids, ref_ids)
+        np.testing.assert_allclose(scores, ref_scores, rtol=1e-6, atol=0)
+        return
     ex_host, exc_host = padded_user_items(np.arange(4096, dtype=np.int32),
                                           edges[0].astype(np.int64), edges[1])
     ref_ids, ref_scores = old_recommend(srv, users, ex_host, exc_host, K)
