@@ -1,28 +1,27 @@
 """Batch serving — counterpart of the JAX package's ``serving.py``.
 
 * :class:`RetrievalServer` holds user/item embedding tables on the device
-  and answers ``recommend(user_ids)`` with exclusion-masked top-k MIPS. Its
-  f32 single-device tier answers each batch on a card with kernel B, which
-  reads the users' sorted exclusion lists (``ops/topk.streams_f32`` decides
-  from the shapes, once, at construction), and elsewhere with the library
-  product and top-k (``ops/topk.mips_topk``).
+  and answers ``recommend(user_ids)`` with exclusion-masked top-k MIPS.
 * :class:`RankingServer` re-ranks matcher candidates: padded subgraph batch
   (host sampler) → hetero SAGE ``infer`` on the device → top-k item ids.
 
 Requests of any size are cut into one fixed batch shape; the tail batch is
 padded and its pad rows dropped from the answer.
 
-``quantized=True`` stores the catalog as per-row int8 and retrieves through
-the int8 streaming kernel (kernel C) on the card, or its plain version on
-the CPU; it never quietly serves f32 instead.
+``RetrievalServer`` picks its route once a k (``_step``); each route owns its
+exclusion encoding and the catalog's pad tail:
 
-With a ``mesh`` (both servers are built and called on every rank):
-``RetrievalServer`` keeps this rank's row block of a catalog padded to
-divide the model axis and answers through the distributed top-k
-(``ops/topk.sharded_mips_topk``), the pad tail never recommended; sharded
-wins over ``quantized`` when both are asked for (JAX ``:73-79``).
-``RankingServer`` runs the model with its feature tables row-sharded
-(JAX ``:319-331``).
+* f32 on a card where ``ops/topk.streams_f32`` holds: kernel B reads each
+  batch's slice of the sorted exclusion lists; no [batch, I] scores;
+* f32 elsewhere: positions (``ops/topk.exclusion_slots``) and ``mips_topk``;
+* ``quantized=True`` (int8, never quietly f32): kernel C on a dense mask
+  holding the pad tail; past ``STREAMING_MAX_BATCH`` rows, ``mips_topk_int8``
+  with the tail's positions joined to the exclusions;
+* a ``mesh`` with a model axis > 1 (both servers are built and called on
+  every rank; it wins over ``quantized``, JAX ``:73-79``): this rank's block
+  of a catalog padded to divide the axis, positions at its offset,
+  ``ops/topk.sharded_mips_topk`` with the pad tail at ``-inf``.
+  ``RankingServer`` runs with its feature tables row-sharded (JAX ``:319-331``).
 """
 from __future__ import annotations
 
@@ -109,26 +108,16 @@ class RetrievalServer:
             items = torch.cat(
                 [items, items.new_zeros((self.items_padded - self.num_items, self.dim))]
             )
-        # each batch's scores are a [batch, cols] buffer whose ids start at
-        # offset: the catalog, padded, or this rank's block of it
-        self._cols, self._offset = self.items_padded, 0
         if self._sharded:
             lo, hi = mesh.row_range(self.items_padded)
             items = items[lo:hi].contiguous()
-            self._cols, self._offset = hi - lo, lo
         self.item_emb = items
-        self._has_tail = self.items_padded != self.num_items
         if self.quantized:
             q, s = row_quantize(self.item_emb)
             self._q_items, self._item_scales = q.contiguous(), s.contiguous()
-            # pad rows quantize to scale 0 → score 0, which would outrank
-            # negative real scores: they are excluded explicitly, as the
-            # exclusion slots of a batch's materialized scores
-            self._tail_slots = exclusion_slots(self.items_padded, torch.arange(
-                self.num_items, self.items_padded, device=dev).expand(self.batch_size, -1))
         # the exclusion table lives on the device, each row's catalog ids in
         # ascending order, -1 after (kernel B's list route reads it so; the
-        # other tiers take any order); each request gathers its rows there.
+        # other routes take any order); each request gathers its rows there.
         # The host keeps the counts alone, for the tracer.
         self._ex = self._exc = self._exc_host = None
         if exclude_edges is not None:
@@ -140,9 +129,8 @@ class RetrievalServer:
             self._ex, self._exc = sorted_exclusions(
                 self.num_items, torch.from_numpy(ex).to(dev), torch.from_numpy(exc).to(dev))
             self._exc_host = self._exc.cpu().numpy()
-        # the f32 single-device tier's step, from the shapes: kernel B with
-        # the exclusion lists, or the library product and top-k
-        self._streams = self._streams_at(self.k)
+        self._steps = {}
+        self._step(self.k)
 
     @classmethod
     def from_lightgcn_artifacts(
@@ -163,36 +151,64 @@ class RetrievalServer:
             quantized=quantized, device=device, mesh=mesh,
         )
 
-    def _quantized_step(self, uvec, slots, k):
-        if self.batch_size > STREAMING_MAX_BATCH:
-            # materializing int8 path: the pad tail joins the exclusions
-            if self._has_tail:
-                slots = self._tail_slots if slots is None else torch.cat(
-                    [self._tail_slots, slots], dim=1)
-            return mips_topk_int8(uvec, self._q_items, self._item_scales, k, exclude_slots=slots)
-        mask = None
-        if slots is not None:
-            mask = exclusion_mask(self.items_padded, exclude_slots=slots)
-        if self._has_tail:
-            if mask is None:
-                mask = torch.zeros((uvec.shape[0], self.items_padded), dtype=torch.int8,
-                                   device=uvec.device)
-            mask[:, self.num_items:] = 1
-        return streaming_mips_topk_int8(
-            uvec, self._q_items, self._item_scales, k, excl_mask=mask
-        )
+    def _step(self, k: int):
+        """(prepare, run) at ``k``, built at its first use and kept: the one
+        place the route is chosen. ``prepare(rows, counts)``, once a request,
+        turns its gathered exclusion rows [batches, b, X] and counts
+        [batches, b] (``None`` without a table) into operands with a leading
+        batch axis; ``run(uvec, *operands_j)`` issues one batch and returns
+        its (values, ids) on the device without waiting."""
+        if k in self._steps:
+            return self._steps[k]
+        b, n, n_pad, items = self.batch_size, self.num_items, self.items_padded, self.item_emb
 
-    def _streams_at(self, k):
-        """Whether kernel B's list route answers this server's batches at
-        ``k`` (``ops/topk.streams_f32``; the f32 single-device tier only)."""
-        return not (self._sharded or self.quantized) and streams_f32(
-            self.device.type, self.batch_size, self.num_items, self.dim, k)
+        def slots_in(cols, offset=0):
+            # each batch's exclusion positions in its [b, cols] scores
+            return lambda rows, counts: () if rows is None else (
+                exclusion_slots(cols, rows, counts, offset),)
 
-    def _streamed_step(self, uvec, rows, counts, k):
-        tracer.count("retrieve.streamed_batches")
-        if rows is None:
-            return streaming_mips_topk(uvec, self.item_emb, k)
-        return streaming_mips_topk_lists(uvec, self.item_emb, k, rows, counts)
+        prepare = slots_in(n_pad)
+        if self._sharded:
+            lo, hi = self.mesh.row_range(n_pad)
+            prepare = slots_in(hi - lo, lo)
+
+            def run(uvec, slots=None):
+                return sharded_mips_topk(self.mesh, uvec, items, k, num_valid_items=n,
+                                         exclude_slots=slots)
+        elif self.quantized and b > STREAMING_MAX_BATCH:
+            # pad rows quantize to scale 0 → score 0, which would outrank
+            # negative real scores: one batch's tail positions join the slots
+            tail = None if n_pad == n else exclusion_slots(
+                n_pad, torch.arange(n, n_pad, device=self.device).expand(b, -1))
+
+            def run(uvec, slots=None):
+                if tail is not None:
+                    slots = tail if slots is None else torch.cat([tail, slots], dim=1)
+                return mips_topk_int8(uvec, self._q_items, self._item_scales, k,
+                                      exclude_slots=slots)
+        elif self.quantized:
+            def run(uvec, slots=None):   # kernel C: a dense mask, the pad tail set
+                mask = None if slots is None else exclusion_mask(n_pad, exclude_slots=slots)
+                if n_pad != n:
+                    if mask is None:
+                        mask = torch.zeros((uvec.shape[0], n_pad), dtype=torch.int8,
+                                           device=uvec.device)
+                    mask[:, n:] = 1
+                return streaming_mips_topk_int8(uvec, self._q_items, self._item_scales, k,
+                                                excl_mask=mask)
+        elif streams_f32(self.device.type, b, n, self.dim, k):
+            def prepare(rows, counts):   # kernel B reads the sorted rows as they are
+                return () if rows is None else (rows, counts)
+
+            def run(uvec, rows=None, counts=None):
+                tracer.count("retrieve.streamed_batches")
+                if rows is None:
+                    return streaming_mips_topk(uvec, items, k)
+                return streaming_mips_topk_lists(uvec, items, k, rows, counts)
+        else:
+            def run(uvec, slots=None):
+                return mips_topk(uvec, items, k, exclude_slots=slots)
+        return self._steps.setdefault(k, (prepare, run))
 
     def recommend(
         self, user_ids: Sequence[int], k: Optional[int] = None
@@ -200,14 +216,11 @@ class RetrievalServer:
         """(item_ids int32 [N, k], scores f32 [N, k]) for any request size.
 
         The request's ids go to the device in one copy, padded to whole
-        batches; its users' rows and exclusion rows are gathered there from
-        the tables, and the exclusions turned into each batch's positions
-        in its score buffer (``ops/topk.exclusion_slots``), once a request;
-        each batch then issues product, exclusion and top-k on its slice
-        without waiting on the device; the answer comes back in one copy of
-        ids and one of scores, the request's only wait. On the kernel B tier
-        a batch's exclusions are its slice of the gathered rows and counts,
-        read by the kernel: no positions and no [batch, I] scores.
+        batches; its users' rows and exclusion rows are gathered there and
+        turned, once a request, into what the route at ``k`` reads (the
+        module's docstring); each batch then issues product, exclusion and
+        top-k on its slices without waiting on the device; the answer comes
+        back in one copy of ids and one of scores, the request's only wait.
 
         Spans of :data:`tracer`: ``retrieve.request`` is the root, with
         children ``retrieve.upload`` (the copy, the gathers and the
@@ -221,9 +234,7 @@ class RetrievalServer:
         are not counted); ``retrieve.streamed_batches``, one a batch that
         kernel B answers."""
         k = self.k if k is None else int(k)
-        # a request's own k keeps the kernel B tier only where the rule
-        # still holds for it
-        streamed = self._streams if k == self.k else self._streams_at(k)
+        prepare, run = self._step(k)
         users = np.asarray(user_ids, np.int64)
         n = len(users)
         b = self.batch_size
@@ -241,29 +252,17 @@ class RetrievalServer:
                 if self.device.type == "cuda":
                     ids = ids.pin_memory().to(self.device, non_blocking=True)
                 uvecs = self.user_emb.index_select(0, ids).view(batches, b, -1)
-                slots = rows = counts = [None] * batches
+                rows = counts = None
                 if self._ex is not None:
-                    # [batches, b, X] rows and [batches, b] counts
                     rows = self._ex.index_select(0, ids).view(batches, b, -1)
                     counts = self._exc.index_select(0, ids).view(batches, b)
-                    if not streamed:   # each batch's positions in its scores
-                        slots = exclusion_slots(self._cols, rows, counts, self._offset)
+                operands = prepare(rows, counts)
             parts = []
             for j in range(batches):
                 with tracer.span("retrieve.batch"), tracer.span("retrieve.score"):
                     # one view a batch, as it is issued (unbinding all at
                     # once would hold the first product back)
-                    uvec, sl = uvecs[j], slots[j]
-                    if self._sharded:
-                        parts.append(sharded_mips_topk(self.mesh, uvec, self.item_emb, k,
-                                                       num_valid_items=self.num_items,
-                                                       exclude_slots=sl))
-                    elif self.quantized:
-                        parts.append(self._quantized_step(uvec, sl, k))
-                    elif streamed:
-                        parts.append(self._streamed_step(uvec, rows[j], counts[j], k))
-                    else:
-                        parts.append(mips_topk(uvec, self.item_emb, k, exclude_slots=sl))
+                    parts.append(run(uvecs[j], *[t[j] for t in operands]))
             with tracer.span("retrieve.readback"):
                 return self._readback(parts, n)
 

@@ -106,7 +106,8 @@ def tables():
 
 @pytest.mark.parametrize("tier", list(TIERS))
 @pytest.mark.parametrize("size", ["1", "B-1", "B", "B+1", "3B+5"])
-def test_recommend_equals_per_batch_loop(tables, tier, size):
+@pytest.mark.parametrize("k", [K, K - 3])   # the server's k, and a request's own
+def test_recommend_equals_per_batch_loop(tables, tier, size, k):
     ue, ie, edges = tables
     b = TIERS[tier]
     n = {"1": 1, "B-1": b - 1, "B": b, "B+1": b + 1, "3B+5": 3 * b + 5}[size]
@@ -121,9 +122,9 @@ def test_recommend_equals_per_batch_loop(tables, tier, size):
     np.testing.assert_array_equal(srv._exc.numpy(), exc_host)
     users = np.random.default_rng(n).integers(0, U, n)
     users[0] = int(np.argmax(exc_host))   # the widest exclusion row
-    ids, scores = srv.recommend(users)
-    ref_ids, ref_scores = old_recommend(srv, users, ex_host, exc_host, K)
-    assert ids.dtype == np.int32 and scores.dtype == np.float32 and ids.shape == (n, K)
+    ids, scores = srv.recommend(users, k)
+    ref_ids, ref_scores = old_recommend(srv, users, ex_host, exc_host, k)
+    assert ids.dtype == np.int32 and scores.dtype == np.float32 and ids.shape == (n, k)
     np.testing.assert_array_equal(ids, ref_ids)
     np.testing.assert_array_equal(scores.view(np.int32), ref_scores.view(np.int32))
     assert (ids < I).all()

@@ -191,10 +191,10 @@ def _tables(seed=5, shuffle=False):
     return ue, ie, (eu[order], ei[order])
 
 
-def _request(srv, users):
+def _request(srv, users, k=None):
     tracer.enable()
     try:
-        out = srv.recommend(users)
+        out = srv.recommend(users, k)
     finally:
         tracer.disable()
     spans, counters = tracer.drain()
@@ -221,7 +221,6 @@ def test_server_on_the_cpu_takes_the_library_path():
     and each batch answers as ``mips_topk`` does on its rows."""
     ue, ie, edges = _tables()
     srv = RetrievalServer(ue, ie, k=K, exclude_edges=edges, batch_size=8, device="cpu")
-    assert not srv._streams
     users = np.random.default_rng(2).integers(0, U, 21)
     (ids, scores), batches, counters = _request(srv, users)
     assert batches == 3 and counters.get("retrieve.streamed_batches", 0) == 0
@@ -257,13 +256,19 @@ def test_streamed_tier_plumbing(monkeypatch, dim):
     the gathered rows and counts and the server builds no [B, I] array; the
     answers are the list route's on each batch; one ``streamed_batches`` a
     batch."""
-    monkeypatch.setattr(serving, "streams_f32", lambda *a: True)
+    monkeypatch.setattr(serving, "streams_f32", lambda *a: a[-1] == K)
     ue, ie, edges = _tables()
     ue, ie = ue[:, :dim], ie[:, :dim]
     srv = RetrievalServer(ue, ie, k=K, exclude_edges=edges, batch_size=8, device="cpu")
-    assert srv._streams
-    _no_score_buffers(monkeypatch, kernel_too=False)
     users = np.random.default_rng(3).integers(0, U, 21)
+    # a request at a k the rule refuses takes the library route
+    (ids, _), _, counters = _request(srv, users, K - 3)
+    assert counters.get("retrieve.streamed_batches", 0) == 0
+    chunk = torch.from_numpy(users)
+    _, ref_i = ttopk.mips_topk(srv.user_emb[chunk], srv.item_emb, K - 3, srv._ex[chunk],
+                               srv._exc[chunk])
+    np.testing.assert_array_equal(ids, ref_i.numpy())
+    _no_score_buffers(monkeypatch, kernel_too=False)
     (ids, scores), batches, counters = _request(srv, users)
     assert batches == 3 and counters["retrieve.streamed_batches"] == 3
     chunk = torch.from_numpy(np.pad(users, (0, 3)))
@@ -392,7 +397,6 @@ def test_card_request_builds_no_score_matrix(monkeypatch):
     dev = _card()
     ue, ie, edges = _tables()
     srv = RetrievalServer(ue, ie, k=K, exclude_edges=edges, batch_size=256, device="cuda")
-    assert srv._streams
     _no_score_buffers(monkeypatch, kernel_too=True)
     users = np.random.default_rng(4).permutation(U)[:600]
     (ids, scores), batches, counters = _request(srv, users)
