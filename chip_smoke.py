@@ -67,17 +67,19 @@ on one NVIDIA H100: ``python3 chip_smoke.py`` from the repository root.
    cardinality 64; batch 256, 24 neighbours, 2 hops, k 12, pool 20, probed
    budgets): the native sampler must build; sampler batches/s with 1 and 2
    workers; one train step (device and call ms, idle share, peak memory,
-   dense or segment path); the step's kernel time with its row gathers'
-   sorted segment sums against ``F.embedding`` and ``table[idx]`` as the
-   gather, and whether one batch's gradients repeat bit for bit (they must
-   with the port's own); train users/s through sampler + prefetch + step;
+   dense or segment path; ``csrc/sorted_sum.cu``'s launches a step); one
+   batch's gradients through that kernel twice (they must repeat bit for
+   bit) and through its plain version (``sorted_sum_plain``: they must be
+   equal), with the step's device time on each; train users/s through
+   sampler + prefetch + step;
    eval users/s; ``RankingServer.recommend`` for 1,000 users; one
    ``conv_agg_type="max"`` step (the segment path) held against the same
    step in f64 on the CPU. Then ``run_pipeline`` at the same widths on a
    20,000 × 5,000 graph for 3 epochs, twice with one seed on the dense
    subgraph path and twice on the segment path, and a resume leg.
-   These paths launch none of the three kernels: their counters are zeroed
-   before each and read after.
+   These paths launch none of the three kernels A, B and C (only
+   ``sorted_sum``, which the ranking stack's runs must launch): their
+   counters are zeroed before each and read after.
 8. PinSAGE at ``bench_pinsage.py:28-30``'s width on phase 3's H&M edges
    (1,371,980 × 104,547; walk length 2, 10 walks, 3 neighbours, 2 layers,
    hidden 64, batch 512; one constant item feature, as the bench has): the
@@ -412,6 +414,13 @@ def segsum_options(torch, sp, graph, tables, dev, d):
                 log("segsum option:", json.dumps(rows[-1]))
             del plan, p
     return rows
+
+
+def tpu_kernel_launches(launches):
+    """The launches of kernels A, B and C (the ports of the TPU kernels) in
+    a ``_build.launches`` snapshot, without ``sorted_sum``: the ranking
+    stack's and PinSAGE's own ordered sums."""
+    return {k: v for k, v in launches.items() if v and k != "sorted_sum"}
 
 
 def trace(torch, fn):
@@ -778,8 +787,6 @@ def ranking_phase(torch, dev, record):
     import copy
     import itertools
 
-    import torch.nn.functional as F
-
     from laplace_gnn_recommendation_tpu_torch import _build, native
     from laplace_gnn_recommendation_tpu_torch.configs import Config
     from laplace_gnn_recommendation_tpu_torch.data.link_pred_data import (
@@ -788,6 +795,7 @@ def ranking_phase(torch, dev, record):
     from laplace_gnn_recommendation_tpu_torch.data.sampler import parallel_epoch_batches
     from laplace_gnn_recommendation_tpu_torch.data.synthetic import random_hetero_graph
     from laplace_gnn_recommendation_tpu_torch.models import sage
+    from laplace_gnn_recommendation_tpu_torch.ops import sorted_sum
     from laplace_gnn_recommendation_tpu_torch.serving import RankingServer
     from laplace_gnn_recommendation_tpu_torch.train import encdec_pipeline as ep
     from laplace_gnn_recommendation_tpu_torch.train.adam import Adam
@@ -870,35 +878,43 @@ def ranking_phase(torch, dev, record):
                              device_idle_share=tr["device_idle_share"],
                              by_kind=kernel_categories(tr["top"]))
 
-    # the step's row gathers (sorted segment sums as their backward) against
-    # the library's: kernel time of the step, and whether one batch's
-    # gradients come out the same bits twice
-    def grads_repeat():
-        grads = []
-        for _ in range(2):
-            for p_ in params.parameters():
-                p_.grad = None
-            gen.manual_seed(11)
-            logits, _ = sage.forward(params, st["bn"], b0, data.user_features,
-                                     data.item_features, cfg, train=True, generator=gen)
-            sage.bce_loss(logits, b0).backward()
-            grads.append(torch.cat([p_.grad.flatten() for p_ in params.parameters()]))
-        return bool(torch.equal(*grads))
+    # the step's sorted sums (edge aggregations, row gathers' backward)
+    # through the kernel and through its plain version: one batch's
+    # gradients (the same bits twice through the kernel, equal to the plain
+    # version's) and the step's device time
+    def batch_grads():
+        for p_ in params.parameters():
+            p_.grad = None
+        gen.manual_seed(11)
+        logits, _ = sage.forward(params, st["bn"], b0, data.user_features,
+                                 data.item_features, cfg, train=True, generator=gen)
+        sage.bce_loss(logits, b0).backward()
+        return torch.cat([p_.grad.flatten() for p_ in params.parameters()])
 
-    ours, gathers = sage._rows, {}
-    for name, fn in (("sorted_sum", ours),
-                     ("F.embedding", lambda t, i, plan=None: F.embedding(i, t)),
-                     ("table[idx]", lambda t, i, plan=None: t[i])):
-        sage._rows = fn
+    kernel_sum = sorted_sum.sorted_sum_kernel
+
+    def through_plain(fn):
+        sorted_sum.sorted_sum_kernel = sorted_sum.sorted_sum_plain
         try:
-            gathers[name] = dict(step_device_busy_ms=trace(torch, one_step)["device_busy_ms"],
-                                 step_call_ms=time_ms(torch, one_step, 10),
-                                 grads_repeat=grads_repeat())
+            return fn()
         finally:
-            sage._rows = ours
-    out["step_gathers"] = gathers
-    if not gathers["sorted_sum"]["grads_repeat"]:
+            sorted_sum.sorted_sum_kernel = kernel_sum
+
+    g_kernel = [batch_grads(), batch_grads()]
+    g_plain = through_plain(batch_grads)
+    sums = dict(
+        grads_repeat=bool(torch.equal(*g_kernel)),
+        grads_equal_plain=bool(torch.equal(g_kernel[0], g_plain)),
+        grads_max_abs_diff_plain=float((g_kernel[0] - g_plain).abs().max()),
+        kernel_step_device_busy_ms=trace(torch, one_step)["device_busy_ms"],
+        plain_step_device_busy_ms=through_plain(lambda: trace(torch, one_step))["device_busy_ms"],
+    )
+    out["step_sorted_sums"] = sums
+    if not sums["grads_repeat"]:
         fail("ranking step: one batch's gradients differ between two identical passes")
+    if not sums["grads_equal_plain"]:
+        fail(f"ranking step: the gradients through the sorted-sum kernel differ from its plain "
+             f"version's: {sums}")
 
     # train users/s: sampler + prefetch (upload on its thread) + step
     chunks = train_s.epoch_user_chunks(shuffle=True)[:RANK_TIMED_BATCHES]
@@ -1032,8 +1048,10 @@ def ranking_phase(torch, dev, record):
             fail(f"run_pipeline {path}: loss curve {curve}")
         if not (runs[path]["resumed"] and len(resumed.loss_curve) == 1):
             fail(f"run_pipeline {path}: the resume leg did not continue at epoch {PIPE_EPOCHS}")
-        if any(any(leg["launches"].values()) for leg in legs):
-            fail(f"run_pipeline {path} launched kernels")
+        if any(tpu_kernel_launches(leg["launches"]) for leg in legs):
+            fail(f"run_pipeline {path} launched kernels A, B or C")
+        if not all(leg["launches"].get("sorted_sum") for leg in legs):
+            fail(f"run_pipeline {path}: its sorted sums did not launch their kernel")
     out["run_pipeline"] = runs
     record["ranking"] = out
     return out
@@ -1432,7 +1450,7 @@ def pinsage_phase(torch, dev, record, edges):
         fail(f"submission CSV malformed: {lines[:3]}")
     shutil.rmtree(ML_DIR, ignore_errors=True)
     out["artifacts_path"] = e2e
-    if any(out["launches"].values()) or any(e2e["launches"].values()):
+    if tpu_kernel_launches(out["launches"]) or tpu_kernel_launches(e2e["launches"]):
         fail(f"the PinSAGE path launched kernels: {out['launches']} {e2e['launches']}")
     record["pinsage"] = out
     return out
@@ -1920,7 +1938,7 @@ def store_phase(torch, dev, record, text_vecs):
     if (len(a["loss_curve"]) != STORE_EPOCHS or not np.isfinite(a["loss_curve"]).all()
             or a["queries_served"] == 0 or a["queries_served"] != b["queries_served"]):
         fail(f"store-backed run_pipeline: {a}")
-    if any(a["launches"].values()):
+    if tpu_kernel_launches(a["launches"]):
         fail(f"store-backed run_pipeline launched kernels: {a['launches']}")
     del data
 

@@ -23,9 +23,12 @@ Aggregation runs on the subgraph's dense [NU, NI] adjacency (duplicate
 edges count; two f32 products a layer) when ``add``/``mean`` and the f32
 pair fits ``cfg.dense_bytes_budget``; otherwise per edge: gathers and a
 sorted segment sum (add/mean) or ``scatter_reduce("amax")`` (max). In the
-JAX package both are plain XLA ops outside any Pallas kernel, and here they
-are library calls. Every sum of floats runs in a fixed order (no float
-atomics), so a step on the same inputs gives the same bits on either path.
+JAX package both are plain XLA ops outside any Pallas kernel. Here add/mean
+gather and sum in one ordered pass over the valid edges
+(``ops/sorted_sum.EdgeSums``; on the card one ``csrc/sorted_sum.cu`` launch a
+direction, its backward the other direction's), and max is library calls.
+Every sum of floats runs in a fixed order (no float atomics), so a step on
+the same inputs gives the same bits on either path.
 
 On a mesh whose model axis is > 1 (``mesh=``), every categorical feature
 table is padded after init to divide the axis and each rank keeps its row
@@ -58,6 +61,7 @@ from ..constants import NODE_EXTRA, NODE_ITEM, NODE_USER
 from ..data.graph import HeteroGraph
 from ..data.sampler import SubgraphBatch
 from ..ops.embedding import shard_table, sharded_embedding_lookup
+from ..ops.sorted_sum import EdgeSums as _EdgeSums
 from ..ops.sorted_sum import SegmentSum as _SegmentSum
 from ..ops.sorted_sum import SumPlan as _SumPlan
 from ..ops.sorted_sum import gather_rows as _rows
@@ -315,22 +319,26 @@ def _embed_features(tables, x: torch.Tensor, mesh=None) -> torch.Tensor:
     return torch.cat(cols, dim=-1)
 
 
+def _valid_count(dst: torch.Tensor, valid: torch.Tensor, num_dst: int, like: torch.Tensor):
+    """[num_dst, 1]: valid edges into each destination, at least 1 (sums of
+    ones are exact in any order)."""
+    cnt = like.new_zeros((num_dst, 1)).index_add(0, dst, valid.to(like.dtype)[:, None])
+    return torch.clamp_min(cnt, 1.0)
+
+
 def _aggregate(
     messages: torch.Tensor,  # [E, D], 0 for invalid
     dst: torch.Tensor,       # int64 [E]
     valid: torch.Tensor,     # bool [E]
     num_dst: int,
     agg: str,
-    plan: Optional[_SumPlan] = None,   # of dst over num_dst
 ) -> torch.Tensor:
     d = messages.shape[1]
     if agg in ("add", "mean"):
-        s = _SegmentSum.apply(messages, plan if plan is not None else _SumPlan(dst, num_dst))
+        s = _SegmentSum.apply(messages, _SumPlan(dst, num_dst))
         if agg == "add":
             return s
-        # sums of ones are exact in any order
-        cnt = messages.new_zeros((num_dst, 1)).index_add(0, dst, valid.to(messages.dtype)[:, None])
-        return s / torch.clamp_min(cnt, 1.0)
+        return s / _valid_count(dst, valid, num_dst, messages)
     if agg == "max":
         neg = torch.where(valid[:, None], messages, torch.full_like(messages, -torch.inf))
         m = messages.new_full((num_dst, d), -torch.inf).scatter_reduce(
@@ -458,8 +466,12 @@ def encode(
             inv_deg_u = 1.0 / torch.clamp_min(adj.sum(1, keepdim=True), 1.0)
             inv_deg_i = 1.0 / torch.clamp_min(adj.sum(0)[:, None], 1.0)
     else:
-        # the edges by user slot and by item slot, for every layer's sums
-        by_user, by_item = _SumPlan(src, nu), _SumPlan(dst, ni)
+        # the valid edges by user slot and by item slot, for every layer's
+        # sums; pad edges are never read
+        edges = _EdgeSums(src, nu, dst, ni, emask)
+        if agg_type == "mean":
+            cnt_u = _valid_count(src, emask, nu, x_user)
+            cnt_i = _valid_count(dst, emask, ni, x_user)
 
     def agg_user(x_item_cur):
         """Item messages into user slots (dst = edge_src)."""
@@ -467,9 +479,12 @@ def encode(
             with exact_f32_matmul():
                 a = adj @ x_item_cur
             return a * inv_deg_u if agg_type == "mean" else a
-        msgs = torch.where(emask[:, None], _rows(x_item_cur, dst, by_item),
+        if agg_type in ("add", "mean"):
+            s = edges.to_a(x_item_cur)
+            return s if agg_type == "add" else s / cnt_u
+        msgs = torch.where(emask[:, None], _rows(x_item_cur, dst, edges.plan_b),
                            torch.zeros((), device=dev))
-        return _aggregate(msgs, src, emask, nu, agg_type, by_user)
+        return _aggregate(msgs, src, emask, nu, agg_type)
 
     def agg_item(x_user_cur):
         """User messages into item slots (dst = edge_dst)."""
@@ -477,9 +492,12 @@ def encode(
             with exact_f32_matmul():
                 a = adj.t() @ x_user_cur
             return a * inv_deg_i if agg_type == "mean" else a
-        msgs = torch.where(emask[:, None], _rows(x_user_cur, src, by_user),
+        if agg_type in ("add", "mean"):
+            s = edges.to_b(x_user_cur)
+            return s if agg_type == "add" else s / cnt_i
+        msgs = torch.where(emask[:, None], _rows(x_user_cur, src, edges.plan_a),
                            torch.zeros((), device=dev))
-        return _aggregate(msgs, dst, emask, ni, agg_type, by_item)
+        return _aggregate(msgs, dst, emask, ni, agg_type)
 
     num_layers = len(params.convs)
     p_drop = cfg.p_dropout_features
